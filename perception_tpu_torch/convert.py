@@ -1,0 +1,54 @@
+"""Carry state from the JAX package into the port.
+
+The JAX package's host types are plain numpy (ModelBank) or hold arrays that
+`np.asarray` reads (a JAX ObservedScene), so nothing here imports jax: the
+functions turn them into the port's tensors and dataclasses, and the tests
+use them to feed both packages identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from perception_tpu.core.mesh import ModelBank
+from perception_tpu_torch.pipeline.scorer import ObservedScene, ScorerConfig
+
+
+def tensor(a, device: str | torch.device = "cpu",
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Any array (numpy, JAX, list) -> a torch tensor on `device`."""
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def bank_tensors(bank: ModelBank, device: str | torch.device = "cpu"
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """(tri_verts [M, T, 3, 3] f32, tri_colors [M, T, 3] f32,
+    tri_valid [M, T] bool, backface_cull [M] bool)."""
+    return (tensor(bank.tri_verts, device, torch.float32),
+            tensor(bank.tri_colors, device, torch.float32),
+            tensor(bank.tri_valid, device, torch.bool),
+            tensor(bank.backface_cull, device, torch.bool))
+
+
+def scene_from_jax(scene, device: str | torch.device = "cpu") -> ObservedScene:
+    """A JAX ObservedScene -> the port's ObservedScene (the fields the port's
+    scorer reads)."""
+    return ObservedScene(
+        seg_xyz=tensor(scene.seg_xyz, device, torch.float32),
+        seg_valid=tensor(scene.seg_valid, device, torch.bool),
+        seg_normals=tensor(scene.seg_normals, device, torch.float32),
+        source_depth=tensor(scene.source_depth, device, torch.int32),
+        source_label=tensor(scene.source_label, device, torch.int32))
+
+
+def scorer_config_from_jax(cfg) -> ScorerConfig:
+    """A JAX ScorerConfig -> the port's, field by field. The JAX kernel
+    backend (e.g. "pallas_direct_interpret") maps to the port's only one."""
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ScorerConfig)}
+    fields["backend"] = "auto"
+    return ScorerConfig(**fields)

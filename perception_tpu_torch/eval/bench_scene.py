@@ -1,0 +1,114 @@
+"""The scoring benchmark's problem, built without JAX.
+
+The same scene as `benchmarks/bench_scene.py:build_bench_problem` from the
+same seed: four blob models (the bank padded to t_cap), three ground-truth
+objects rendered at 640x480 as the observation, and n_poses candidates that
+perturb the ground truth by 2 cm / 0.15 rad. Settings come as arguments (the
+JAX version reads BENCH_* / PT_* environment variables; their defaults are
+the values used here).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from perception_tpu.core.config import CameraIntrinsics, EnvConfig, PerchConfig
+from perception_tpu.core.mesh import mesh_model_from_arrays
+from perception_tpu.core.pose import ContPose, euler_xyz_to_matrix, matrix_to_quat
+from perception_tpu.core.state import ObjectState
+from perception_tpu_torch.core.mesh import bank_from_models
+from perception_tpu_torch.pipeline.env import PerceptionEnv
+from perception_tpu_torch.pipeline.scorer import (
+    PoseScores,
+    ScorerConfig,
+    score_pose_batch,
+)
+
+
+@dataclasses.dataclass
+class BenchProblem:
+    env: PerceptionEnv
+    candidates: list[ObjectState]
+    gt: list[ObjectState]         # the three scene objects (label i + 1)
+    args: tuple                   # score_pose_batch positional inputs
+    cfg: ScorerConfig
+
+    def score(self, n: int | None = None) -> PoseScores:
+        """Score the first n candidates (all by default) in one batch."""
+        env = self.env
+        (verts, colors, valid, poses, ids, labels, totals, proj,
+         scene) = self.args
+        sl = slice(None, n)
+        return score_pose_batch(
+            verts, colors, valid, poses[sl], ids[sl], labels[sl], totals[sl],
+            proj, scene, self.cfg, bank_backface=env._render_bank[3],
+            bank_icp_samples=env._bank_icp_samples,
+            bank_icp_normals=env._bank_icp_normals)
+
+
+def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
+                        width: int = 640, height: int = 480, stride: int = 8,
+                        seed: int = 0, model_kind: str = "blob",
+                        device: str | torch.device = "cpu") -> BenchProblem:
+    """model_kind: "blob" (convex hulls) or "bumpy1024" (~t_cap-triangle
+    non-convex models), as BENCH_MODELS selects for the JAX version."""
+    from benchmarks.bench_scene import bumpy_blob, convex_blob
+
+    rng = np.random.default_rng(seed)
+    cam = CameraIntrinsics(fx=1066.778, fy=1067.487, cx=312.9869,
+                           cy=241.3109, width=width, height=height)
+    models = []
+    for i in range(4):
+        if model_kind == "bumpy1024":
+            v, f = bumpy_blob(rng, radius=0.05 + 0.015 * i, target=t_cap)
+        elif model_kind == "blob":
+            v, f = convex_blob(rng, radius=0.05 + 0.015 * i)
+        else:
+            raise ValueError(f"unknown model_kind {model_kind!r}")
+        colors = rng.uniform(40, 220, (len(v), 3))
+        models.append(mesh_model_from_arrays(
+            f"blob{i}", v, f, colors=colors, use_external_pose_list=True))
+    bank = bank_from_models(models, t_cap=t_cap)
+    perch = PerchConfig(gpu_stride=stride, gpu_batch_size=n_poses,
+                        sensor_resolution=0.01,
+                        min_neighbor_points_for_valid_pose=8)
+    env_cfg = EnvConfig(width=width, height=height, max_points_per_pose=1024,
+                        max_observed_points=8192, max_points_per_label=1024,
+                        max_labels=4, roi_size=32, kernel_backend="auto",
+                        icp_mode="auto")
+    env = PerceptionEnv(bank, cam, perch, env_cfg, device=device)
+
+    gt = []
+    for i in range(3):
+        pose = ContPose.from_quat(
+            0.55 + 0.12 * i, -0.25 + 0.22 * i, 0.02 * i,
+            *matrix_to_quat(euler_xyz_to_matrix(*rng.uniform(-1.5, 1.5, 3))))
+        gt.append(ObjectState(id=i, symmetric=False, pose=pose,
+                              segmentation_label_id=i + 1))
+    env.set_observation_from_states(gt)
+
+    cands = []
+    for k in range(n_poses):
+        base = gt[k % 3]
+        jt = rng.normal(0, 0.02, 3)
+        rot = (euler_xyz_to_matrix(*rng.normal(0, 0.15, 3))
+               @ base.pose.rotation())
+        pose = ContPose.from_quat(base.pose.x + jt[0], base.pose.y + jt[1],
+                                  base.pose.z + jt[2], *matrix_to_quat(rot))
+        cands.append(ObjectState(
+            id=base.id, symmetric=False, pose=pose,
+            segmentation_label_id=base.segmentation_label_id))
+
+    cfg = env._scorer_config(do_icp=True)
+    seg_count = env._observed.seg_count.cpu().numpy().astype(np.float32)
+    poses = np.stack([env.pose_to_camera(s) for s in cands]).astype(np.float32)
+    ids = np.asarray([s.id for s in cands], np.int64)
+    labels = np.asarray([s.segmentation_label_id - 1 for s in cands], np.int64)
+    dev = env._tensor
+    rb_verts, rb_colors, rb_valid, _ = env._render_bank
+    args = (rb_verts, rb_colors, rb_valid, dev(poses), dev(ids), dev(labels),
+            dev(seg_count[labels]), env._proj, env._scene)
+    return BenchProblem(env=env, candidates=cands, gt=gt, args=args, cfg=cfg)

@@ -1,0 +1,404 @@
+"""Recognition environment: observed-input processing and candidate scoring.
+
+Counterpart of `perception_tpu/pipeline/env.py` for the greedy 6-DoF path:
+`set_input` builds the observed scene (label-partitioned cloud, segment
+normals, strided source images) on the env's device and the world-frame
+KD-trees for validity pruning on the host; `score_object_states` runs
+`score_pose_batch` in `gpu_batch_size` chunks; `compute_greedy_poses` takes
+the per-(model, segment) argmin with the |target - source| < 30 filter.
+
+Not ported yet (they raise): 3-DoF input and successors, `fine_stride`,
+`pose_refinement_rounds`, kernel backends other than "auto", and the
+debug-image dumps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+from scipy.spatial import cKDTree
+
+from perception_tpu.core.config import CameraIntrinsics, EnvConfig, PerchConfig
+from perception_tpu.core.mesh import ModelBank
+from perception_tpu.core.pose import CAM_TO_BODY, ContPose
+from perception_tpu.core.state import GraphState, ObjectState
+from perception_tpu.utils.stats import EnvStats
+from perception_tpu_torch.core.mesh import decimated_bank
+from perception_tpu_torch.ops.cost import COST_TYPE_6DOF
+from perception_tpu_torch.ops.icp import cloud_normals
+from perception_tpu_torch.ops.pointcloud import observed_cloud_from_depth
+from perception_tpu_torch.ops.rasterizer import render_pose_batch
+from perception_tpu_torch.pipeline.scorer import (
+    ObservedScene,
+    ScorerConfig,
+    score_pose_batch,
+)
+
+
+@dataclasses.dataclass
+class RecognitionInput:
+    """Observed scene input (the JAX RecognitionInput's 6-DoF fields)."""
+
+    depth_image: np.ndarray                 # [H, W] raw sensor units
+    color_image: np.ndarray | None = None   # [H, W, 3]
+    label_mask: np.ndarray | None = None    # [H, W] int, 1-based instances
+    depth_factor: float = 100.0             # sensor units per metre
+    cam_to_world: np.ndarray = dataclasses.field(
+        default_factory=lambda: CAM_TO_BODY.copy())
+    segmented_object_names: list[str] = dataclasses.field(default_factory=list)
+    use_external_pose_list: bool = True     # 6-DoF mode (3-DoF: not ported)
+
+
+@dataclasses.dataclass
+class ScoredState:
+    """Per-candidate result (reference CostComputationOutput)."""
+
+    state: ObjectState
+    cost: int
+    target_cost: int
+    source_cost: int
+    last_level_cost: int
+    adjusted_pose_cam: np.ndarray   # [4, 4] model->camera (post-ICP)
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet")
+
+
+class PerceptionEnv:
+    def __init__(self, bank: ModelBank, camera: CameraIntrinsics,
+                 perch: PerchConfig | None = None,
+                 env: EnvConfig | None = None,
+                 device: str | torch.device = "cpu"):
+        self.bank = bank
+        self.camera = camera
+        self.perch = perch or PerchConfig()
+        self.env = env or EnvConfig(width=camera.width, height=camera.height)
+        if self.env.kernel_backend != "auto":
+            raise _unported(f"kernel_backend={self.env.kernel_backend!r}")
+        if self.env.fine_stride:
+            raise _unported("fine_stride (coarse-to-fine re-scoring)")
+        if self.env.pose_refinement_rounds:
+            raise _unported("pose_refinement_rounds")
+        if self.perch.vis_expanded_states:
+            raise _unported("vis_expanded_states (debug image dumps)")
+        self.device = torch.device(device)
+        self.stats = EnvStats()
+        self._input: RecognitionInput | None = None
+        self._scene: ObservedScene | None = None
+        self._observed = None
+        self._world_kdtree: cKDTree | None = None
+        self._seg_kdtrees: list[cKDTree | None] = []
+        dev = self._tensor
+        self._proj = dev(camera.projection(), torch.float32)
+        self._bank_tri_verts = dev(bank.tri_verts, torch.float32)
+        self._bank_tri_colors = dev(bank.tri_colors, torch.float32)
+        self._bank_tri_valid = dev(bank.tri_valid, torch.bool)
+        self._bank_backface = dev(bank.backface_cull, torch.bool)
+        samp, snrm = bank.surface_samples(self.env.icp_model_samples)
+        self._bank_icp_samples = dev(samp, torch.float32)
+        self._bank_icp_normals = dev(snrm, torch.float32)
+        lod = self.env.render_lod
+        if lod and lod < bank.tri_valid.shape[1]:
+            rb = decimated_bank(bank, lod)
+            self._render_bank = (dev(rb.tri_verts, torch.float32),
+                                 dev(rb.tri_colors, torch.float32),
+                                 dev(rb.tri_valid, torch.bool),
+                                 dev(rb.backface_cull, torch.bool))
+        else:
+            self._render_bank = (self._bank_tri_verts, self._bank_tri_colors,
+                                 self._bank_tri_valid, self._bank_backface)
+
+    def _tensor(self, a, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """A host array as a tensor on the env's device."""
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=self.device)
+
+    # ------------------------------------------------------------------
+    # Input processing
+    # ------------------------------------------------------------------
+
+    def _build_scene(self, rin: RecognitionInput, stride: int):
+        cam, env = self.camera, self.env
+        h, w = rin.depth_image.shape
+        if (h, w) != (cam.height, cam.width):
+            raise ValueError(f"depth image {w}x{h} != camera "
+                             f"{cam.width}x{cam.height}")
+        if not rin.use_external_pose_list:
+            raise _unported("3-DoF input (use_external_pose_list=False)")
+        if rin.label_mask is None:
+            raise ValueError("6-DoF mode needs an instance mask")
+        color = (rin.color_image if rin.color_image is not None
+                 else np.zeros((h, w, 3), np.float32))
+        dev = self._tensor
+        observed = observed_cloud_from_depth(
+            dev(rin.depth_image, torch.float32), dev(color, torch.float32),
+            dev(rin.label_mask, torch.int32),
+            fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+            width=cam.width, height=cam.height, stride=stride,
+            depth_factor=float(rin.depth_factor),
+            max_points=env.max_observed_points,
+            seg_cap=env.max_points_per_label,
+            num_labels=env.max_labels)
+        seg_normals = cloud_normals(observed.seg_xyz, observed.seg_valid, k=10)
+        # Strided source images in render units (int cm) for the occlusion
+        # pass.
+        division = float(rin.depth_factor) / env.gpu_depth_factor
+        src = rin.depth_image[::stride, ::stride].astype(np.float64) / division
+        scene = ObservedScene(
+            seg_xyz=observed.seg_xyz,
+            seg_valid=observed.seg_valid, seg_normals=seg_normals,
+            source_depth=dev(src.astype(np.int32), torch.int32),
+            source_label=dev(rin.label_mask[::stride, ::stride], torch.int32))
+        return scene, observed
+
+    def set_input(self, rin: RecognitionInput) -> None:
+        t0 = time.perf_counter()
+        self._input = rin
+        self._scene, self._observed = self._build_scene(
+            rin, int(self.perch.gpu_stride))
+        # Host-side world-frame KD-trees for validity checks.
+        valid = self._observed.valid.cpu().numpy()
+        xyz = self._observed.xyz.cpu().numpy()[valid]
+        labels = self._observed.label.cpu().numpy()[valid]
+        pts_world = xyz @ rin.cam_to_world[:3, :3].T + rin.cam_to_world[:3, 3]
+        self._world_points = pts_world
+        self._world_labels = labels
+        self._world_kdtree = cKDTree(pts_world) if len(pts_world) else None
+        self._seg_kdtrees = []
+        for l in range(self.env.max_labels):
+            seg = pts_world[labels == l]
+            self._seg_kdtrees.append(cKDTree(seg) if len(seg) else None)
+        self.stats.input_time = time.perf_counter() - t0
+
+    def set_observation_from_states(self, states: Sequence[ObjectState]
+                                    ) -> None:
+        """Simulated ground-truth input: render the given scene state and use
+        it as the observation (no sensor model)."""
+        depth, color, label = self.render_composite(states)
+        depth_m = depth.astype(np.float64) / self.env.gpu_depth_factor
+        self.set_input(RecognitionInput(
+            depth_image=depth_m * 100.0, color_image=color, label_mask=label,
+            depth_factor=100.0, cam_to_world=CAM_TO_BODY.copy(),
+            segmented_object_names=[self.bank.models[s.id].name
+                                    for s in states],
+            use_external_pose_list=True))
+
+    def render_composite(self, states: Sequence[ObjectState]):
+        """Render a multi-object scene into one depth / colour / label image
+        at full stride-1 resolution (through the direct raster kernel)."""
+        cam = self.camera
+        poses = np.stack([self.pose_to_camera(s) for s in states])
+        ids = np.asarray([s.id for s in states], np.int64)
+        out = render_pose_batch(
+            self._bank_tri_verts, self._bank_tri_colors, self._bank_tri_valid,
+            self._tensor(poses, torch.float32), self._tensor(ids), self._proj,
+            width=cam.width, height=cam.height, stride=1)
+        depths = out.depth.cpu().numpy()
+        colors = out.color.cpu().numpy()
+        big = np.iinfo(np.int32).max
+        depths_inf = np.where(depths == 0, big, depths)
+        winner = depths_inf.argmin(axis=0)
+        depth = np.take_along_axis(depths_inf, winner[None], axis=0)[0]
+        depth = np.where(depth == big, 0, depth)
+        color = np.take_along_axis(colors, winner[None, ..., None], axis=0)[0]
+        label = np.where(depth > 0, winner + 1, 0).astype(np.int32)
+        return depth, color, label
+
+    # ------------------------------------------------------------------
+    # Pose transforms
+    # ------------------------------------------------------------------
+
+    def pose_to_camera(self, state: ObjectState) -> np.ndarray:
+        """World-frame ContPose -> model->camera matrix incl. preprocessing."""
+        cam_to_world = (self._input.cam_to_world if self._input is not None
+                        else CAM_TO_BODY.copy())
+        pre = self.bank.models[state.id].preprocessing_transform
+        return (np.linalg.inv(cam_to_world) @ state.pose.transform()
+                @ pre).astype(np.float32)
+
+    def camera_to_world_pose(self, mat_cam: np.ndarray, model_id: int,
+                             remove_preprocessing: bool = True) -> ContPose:
+        m = self._input.cam_to_world @ mat_cam
+        if remove_preprocessing:
+            m = m @ np.linalg.inv(
+                self.bank.models[model_id].preprocessing_transform)
+        return ContPose.from_matrix(m)
+
+    def is_valid_pose(self, state: ObjectState) -> bool:
+        """6-DoF validity: enough observed points of the pose's segment
+        within the model's inflated radius."""
+        model = self.bank.models[state.id]
+        p = np.array([state.pose.x, state.pose.y, state.pose.z])
+        grid_rad = float(np.hypot(self.env.res / 2, self.env.res / 2))
+        rad = max(model.inflation_factor * model.circumscribed_radius_3d,
+                  grid_rad)
+        tree = None
+        if 0 <= state.segmentation_label_id - 1 < len(self._seg_kdtrees):
+            tree = self._seg_kdtrees[state.segmentation_label_id - 1]
+        if tree is None:
+            tree = self._world_kdtree
+        if tree is None:
+            return False
+        count = len(tree.query_ball_point(p, rad))
+        return count >= self.perch.min_neighbor_points_for_valid_pose
+
+    # ------------------------------------------------------------------
+    # Scoring
+    # ------------------------------------------------------------------
+
+    def _scorer_config(self, do_icp: bool | None = None) -> ScorerConfig:
+        cam, perch, env = self.camera, self.perch, self.env
+        if perch.use_color_cost:
+            raise _unported("use_color_cost (CIEDE2000 gate)")
+        if do_icp is None:
+            do_icp = perch.icp_type == 3
+        stride = int(perch.gpu_stride)
+        roi = None
+        if env.roi_size:
+            roi = (min(env.roi_size, cam.height // stride),
+                   min(env.roi_size, cam.width // stride))
+        icp_mode = "fused" if env.icp_mode == "auto" else env.icp_mode
+        return ScorerConfig(
+            width=cam.width, height=cam.height, stride=stride,
+            fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+            max_points_per_pose=env.max_points_per_pose,
+            cost_type=COST_TYPE_6DOF,
+            sensor_resolution=perch.sensor_resolution,
+            color_distance_threshold=perch.color_distance_threshold,
+            occlusion_threshold=perch.gpu_occlusion_threshold,
+            use_segmentation_label=True,
+            use_tree_occlusion=perch.use_tree_occlusion,
+            do_icp=do_icp,
+            icp_mode=icp_mode,
+            icp_max_iterations=min(perch.max_icp_iterations, 60),
+            icp_max_correspondence=perch.icp_max_correspondence,
+            icp_downsample=env.icp_downsample,
+            icp_render_scale=env.icp_render_scale,
+            icp_crop_targets=env.icp_crop_targets,
+            icp_crop_mode=env.icp_crop_mode,
+            cost_crop_targets=env.cost_crop_targets,
+            icp_source=env.icp_source,
+            cost_cloud=env.cost_cloud,
+            cost_aug_samples=env.cost_aug_samples,
+            icp_gicp_epsilon=env.icp_gicp_epsilon,
+            icp_d2d_symmetric=env.icp_d2d_symmetric,
+            icp_nn_every=env.icp_nn_every,
+            icp_assoc_trigger=env.icp_assoc_trigger,
+            icp_crop_share=env.icp_crop_share,
+            icp_gather=env.icp_gather,
+            icp_exact_nn_every=env.icp_exact_nn_every,
+            icp_stagnation_streak=env.icp_stagnation_streak,
+            depth_factor=env.gpu_depth_factor,
+            roi_shape=roi,
+            use_clutter_mode=perch.use_clutter_mode,
+            clutter_regularizer=perch.clutter_regularizer,
+        )
+
+    def score_object_states(self, states: Sequence[ObjectState],
+                            do_icp: bool | None = None) -> list[ScoredState]:
+        """Score single-object placements in gpu_batch_size chunks (the last
+        chunk padded to the full batch, padding dropped)."""
+        if self._scene is None:
+            raise RuntimeError("call set_input first")
+        cfg = self._scorer_config(do_icp)
+        seg_count = self._observed.seg_count.cpu().numpy().astype(np.float32)
+        results: list[ScoredState] = []
+        batch = int(self.perch.gpu_batch_size)
+        rb_verts, rb_colors, rb_valid, rb_backface = self._render_bank
+        for start in range(0, len(states), batch):
+            chunk = list(states[start:start + batch])
+            n = len(chunk)
+            if n < batch:
+                chunk = chunk + [chunk[0]] * (batch - n)
+            poses = np.stack([self.pose_to_camera(s) for s in chunk])
+            ids = np.asarray([s.id for s in chunk], np.int64)
+            labels = np.asarray(
+                [max(s.segmentation_label_id - 1, 0) for s in chunk], np.int64)
+            dev = self._tensor
+            t0 = time.perf_counter()
+            scores = score_pose_batch(
+                rb_verts, rb_colors, rb_valid,
+                dev(poses, torch.float32), dev(ids), dev(labels),
+                dev(seg_count[labels], torch.float32), self._proj,
+                self._scene, cfg, bank_backface=rb_backface,
+                bank_icp_samples=self._bank_icp_samples,
+                bank_icp_normals=self._bank_icp_normals)
+            total = scores.total_cost.cpu().numpy()
+            rendered = scores.rendered_cost.cpu().numpy()
+            observed = scores.observed_cost.cpu().numpy()
+            diff = scores.points_diff_cost.cpu().numpy()
+            adjusted = scores.adjusted_poses.cpu().numpy()
+            self.stats.gpu_time += time.perf_counter() - t0
+            self.stats.scenes_rendered += n
+            for i, st in enumerate(chunk[:n]):
+                # (100, 100) degenerate diff rule.
+                d = diff[i]
+                if int(rendered[i]) == 100 and int(observed[i]) == 100:
+                    d = 100.0
+                results.append(ScoredState(
+                    state=st, cost=int(total[i]),
+                    target_cost=int(rendered[i]),
+                    source_cost=int(observed[i]),
+                    last_level_cost=int(d),
+                    adjusted_pose_cam=adjusted[i]))
+        return results
+
+    # ------------------------------------------------------------------
+    # Greedy recognition
+    # ------------------------------------------------------------------
+
+    def compute_greedy_poses(
+        self, candidates: Sequence[ObjectState], do_icp: bool | None = None,
+    ) -> tuple[GraphState, list[ScoredState]]:
+        """Per-(model, segment) argmin over scored candidates with the
+        |target - source| < 30 filter."""
+        t0 = time.perf_counter()
+        scored = self.score_object_states(candidates, do_icp)
+        best: dict[tuple, ScoredState] = {}
+        for su in scored:
+            if su.cost in (-1, -2):
+                continue
+            if abs(su.target_cost - su.source_cost) >= 30:
+                continue
+            key = (su.state.id, su.state.segmentation_label_id)
+            if key not in best or su.cost < best[key].cost:
+                best[key] = su
+        state = GraphState()
+        chosen = []
+        for key in sorted(best):
+            su = best[key]
+            adj_state = ObjectState(
+                id=su.state.id, symmetric=su.state.symmetric,
+                pose=self.camera_to_world_pose(su.adjusted_pose_cam,
+                                               su.state.id),
+                segmentation_label_id=su.state.segmentation_label_id)
+            state = state.append(adj_state)
+            chosen.append(dataclasses.replace(su, state=adj_state))
+        self.stats.time = time.perf_counter() - t0
+        self.stats.scenes_valid = sum(1 for s in scored if s.cost >= 0)
+        return state, chosen
+
+    def generate_successors_6dof(self, pose_lists: dict[str, np.ndarray]
+                                 ) -> list[ObjectState]:
+        """Candidate object states from per-object pose arrays [K, 7]
+        (x y z qx qy qz qw), validity-pruned."""
+        out = []
+        names = self._input.segmented_object_names
+        for model_name, arr in pose_lists.items():
+            mid = self.bank.index_of(model_name)
+            model = self.bank.models[mid]
+            label_id = (names.index(model_name) + 1
+                        if model_name in names else 1)
+            for ext_id, row in enumerate(np.asarray(arr)):
+                st = ObjectState(id=mid, symmetric=model.symmetric,
+                                 pose=ContPose.from_quat(*row[:7]),
+                                 segmentation_label_id=label_id,
+                                 external_pose_id=ext_id)
+                if self.is_valid_pose(st):
+                    out.append(st)
+        return out

@@ -1,0 +1,164 @@
+"""Recognition API in greedy mode (PERCH 2.0 greedy render path).
+
+Counterpart of `perception_tpu/pipeline/recognizer.py`:
+`localize_objects_greedy_render` sets the input, generates the 6-DoF
+candidates, takes the greedy argmin and reports world poses. The tree search
+(`localize_objects`) and the greedy-ICP baseline are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from perception_tpu.core.config import CameraIntrinsics, EnvConfig, PerchConfig
+from perception_tpu.core.mesh import MeshModel, ModelBank
+from perception_tpu.core.pose import ContPose
+from perception_tpu.core.state import GraphState, ObjectState
+from perception_tpu.io.poses_file import (
+    write_cost_dump,
+    write_output_poses,
+    write_output_stats,
+)
+from perception_tpu_torch.core.mesh import bank_from_models
+from perception_tpu_torch.pipeline.env import PerceptionEnv, RecognitionInput
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    """One model-bank entry (fields as the JAX ModelSpec)."""
+
+    name: str
+    path: str
+    flipped: bool = False
+    symmetric: bool = False
+    symmetry_mode: int = 0
+    search_resolution: float = 0.06
+    num_variants: int = 1
+
+
+@dataclasses.dataclass
+class LocalizationResult:
+    names: list[str]
+    poses: list[ContPose]
+    object_transforms: list[np.ndarray]          # incl. preprocessing
+    preprocessing_transforms: list[np.ndarray]
+    stats: object
+
+
+class ObjectRecognizer:
+    def __init__(
+        self,
+        model_specs: list[ModelSpec],
+        camera: CameraIntrinsics,
+        perch: PerchConfig | None = None,
+        env_cfg: EnvConfig | None = None,
+        mesh_in_mm: bool = False,
+        mesh_scaling_factor: float = 0.001,
+        use_external_pose_list: bool = True,
+        target_triangles: int = 1024,
+        device: str | torch.device = "cpu",
+    ):
+        from perception_tpu.io.model_cache import load_model_cached
+
+        models = [load_model_cached(
+            spec.path, name=spec.name, mesh_in_mm=mesh_in_mm,
+            scaling_factor=mesh_scaling_factor, flipped=spec.flipped,
+            use_external_pose_list=use_external_pose_list,
+            target_triangles=target_triangles,
+            symmetric=spec.symmetric, symmetry_mode=spec.symmetry_mode)
+            for spec in model_specs]
+        self._init(bank_from_models(models), camera, perch, env_cfg, device,
+                   model_specs)
+
+    @classmethod
+    def from_models(cls, models: list[MeshModel], camera: CameraIntrinsics,
+                    perch: PerchConfig | None = None,
+                    env_cfg: EnvConfig | None = None,
+                    t_cap: int | None = None,
+                    device: str | torch.device = "cpu") -> "ObjectRecognizer":
+        """A recogniser over in-memory models (no mesh files)."""
+        self = cls.__new__(cls)
+        specs = [ModelSpec(name=m.name, path="") for m in models]
+        self._init(bank_from_models(models, t_cap=t_cap), camera, perch,
+                   env_cfg, device, specs)
+        return self
+
+    def _init(self, bank: ModelBank, camera, perch, env_cfg, device,
+              specs) -> None:
+        self.env = PerceptionEnv(bank, camera, perch, env_cfg, device=device)
+        self.specs = specs
+        self.last_state: GraphState | None = None
+
+    @property
+    def bank(self) -> ModelBank:
+        return self.env.bank
+
+    def warmup(self) -> float:
+        """Localise a synthetic scene of the bank's own models once, so the
+        first request finds the kernels built and loaded. Returns seconds."""
+        t0 = time.perf_counter()
+        n = len(self.bank.models)
+        states, pose_lists = [], {}
+        for i, m in enumerate(self.bank.models):
+            y = 0.12 * (i - (n - 1) / 2.0)
+            states.append(ObjectState(
+                id=i, symmetric=m.symmetric,
+                pose=ContPose.from_quat(0.58, y, -0.02, 0, 0, 0, 1),
+                segmentation_label_id=i + 1))
+            pose_lists[m.name] = np.asarray([[0.58, y, -0.02, 0, 0, 0, 1.0]])
+        self.env.set_observation_from_states(states)
+        self.localize_objects_greedy_render(self.env._input, pose_lists)
+        return time.perf_counter() - t0
+
+    def localize_objects_greedy_render(
+        self, rin: RecognitionInput, pose_lists: dict[str, np.ndarray],
+        output_dir: str | None = None,
+    ) -> LocalizationResult:
+        env = self.env
+        env.set_input(rin)
+        candidates = env.generate_successors_6dof(pose_lists)
+        state, chosen = env.compute_greedy_poses(candidates)
+        result = self._result_from_state(state)
+        if env.device.type == "cuda":
+            env.stats.peak_device_mem_mb = max(
+                env.stats.peak_device_mem_mb,
+                torch.cuda.max_memory_allocated(env.device) / 1e6)
+        if output_dir is not None:
+            self._write_outputs(output_dir, result, chosen)
+        return result
+
+    def _result_from_state(self, state: GraphState) -> LocalizationResult:
+        self.last_state = state
+        names, poses, tfs, pres = [], [], [], []
+        seg_names = (self.env._input.segmented_object_names
+                     if self.env._input is not None else [])
+        for obj in state.object_states:
+            model = self.bank.models[obj.id]
+            lid = obj.segmentation_label_id
+            names.append(seg_names[lid - 1] if 1 <= lid <= len(seg_names)
+                         else model.name)
+            poses.append(obj.pose)
+            pre = model.preprocessing_transform
+            tfs.append(obj.pose.transform() @ pre)
+            pres.append(pre)
+        return LocalizationResult(
+            names=names, poses=poses, object_transforms=tfs,
+            preprocessing_transforms=pres, stats=self.env.stats)
+
+    def _write_outputs(self, output_dir: str, result: LocalizationResult,
+                       chosen) -> None:
+        os.makedirs(output_dir, exist_ok=True)
+        write_output_poses(
+            os.path.join(output_dir, "output_poses.txt"),
+            list(zip(result.names, result.poses,
+                     result.preprocessing_transforms)))
+        write_output_stats(
+            os.path.join(output_dir, "output_stats.txt"), self.env.stats)
+        if chosen:
+            write_cost_dump(
+                os.path.join(output_dir, "cost_dump.json"), chosen, self.env)

@@ -1,0 +1,280 @@
+"""Candidate-pose scoring: render -> cloud -> fused ICP -> fused cost.
+
+Counterpart of `perception_tpu/pipeline/scorer.py` for the greedy 6-DoF
+configuration:
+
+    direct raster (ROI or full frame) + occlusion pass
+      -> depth_to_cloud_roi / depth_to_cloud_batch
+      -> label-shared "near" target crop + pack_targets
+      -> fused point-to-plane ICP on the downsampled cloud
+      -> the cloud moved by the ICP delta, plus explain-only surface samples
+      -> fused depth-only cost -> total cost.
+
+The same `ScorerConfig` (field names and defaults as the JAX one) selects the
+path; every branch that is not ported raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from perception_tpu_torch.ops.cost import COST_TYPE_6DOF, compute_costs_fused
+from perception_tpu_torch.ops.icp import crop_targets
+from perception_tpu_torch.ops.icp_fused import icp_fused, pack_targets
+from perception_tpu_torch.ops.pointcloud import (
+    depth_to_cloud_batch,
+    depth_to_cloud_roi,
+)
+from perception_tpu_torch.ops.rasterizer import render_pose_batch
+
+
+@dataclasses.dataclass
+class ObservedScene:
+    """Observed-scene tensors the scorer reads, built once per frame."""
+
+    seg_xyz: torch.Tensor        # [L, S, 3] label-partitioned observed cloud
+    seg_valid: torch.Tensor      # [L, S] bool
+    seg_normals: torch.Tensor    # [L, S, 3]
+    source_depth: torch.Tensor   # [h_s, w_s] int32 render units
+    source_label: torch.Tensor   # [h_s, w_s] int32 1-based
+
+
+@dataclasses.dataclass(frozen=True)
+class ScorerConfig:
+    """Pipeline parameters; the same fields and defaults as the JAX
+    ScorerConfig (see perception_tpu/pipeline/scorer.py for each field)."""
+
+    width: int = 640
+    height: int = 480
+    stride: int = 8
+    fx: float = 1066.778
+    fy: float = 1067.487
+    cx: float = 312.9869
+    cy: float = 241.3109
+    max_points_per_pose: int = 1024
+    cost_type: int = COST_TYPE_6DOF
+    sensor_resolution: float = 0.01
+    color_distance_threshold: float = 15.0
+    occlusion_threshold: float = 1.0
+    use_segmentation_label: bool = True
+    use_tree_occlusion: bool = False
+    do_icp: bool = True
+    icp_mode: str = "nn"
+    icp_max_iterations: int = 30
+    icp_max_correspondence: float = 0.05
+    icp_rotation_epsilon: float = 2e-3
+    icp_transformation_epsilon: float = 5e-4
+    icp_downsample: int = 4
+    icp_crop_targets: int = 256
+    icp_crop_mode: str = "near"
+    icp_render_scale: int = 1
+    icp_exact_nn_every: int = 1
+    icp_nn_every: int = 2
+    icp_assoc_trigger: float = 0.004
+    icp_crop_share: str = "label"
+    icp_gather: str = "take"
+    icp_stagnation_streak: int = 8
+    icp_gicp_epsilon: float = 0.05
+    icp_d2d_rotation_epsilon: float | None = None
+    icp_d2d_transformation_epsilon: float | None = None
+    icp_d2d_symmetric: bool = False
+    cost_aug_samples: int = 0
+    cost_cloud: str = "transform"
+    icp_source: str = "render"
+    cost_crop_targets: int = 256
+    raster_tile: int = 256
+    knn_ref_tile: int = 512
+    depth_factor: float = 100.0
+    roi_shape: tuple[int, int] | None = None
+    backend: str = "auto"
+    use_clutter_mode: bool = False
+    clutter_regularizer: float = 0.1
+
+
+@dataclasses.dataclass
+class PoseScores:
+    total_cost: torch.Tensor        # [N] int32; -1 invalid
+    rendered_cost: torch.Tensor     # [N] float32
+    observed_cost: torch.Tensor     # [N] float32
+    points_diff_cost: torch.Tensor  # [N] float32
+    adjusted_poses: torch.Tensor    # [N, 4, 4] post-ICP model->camera
+    pose_occluded: torch.Tensor     # [N] int32
+    point_count: torch.Tensor       # [N] float32 rendered points per pose
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet")
+
+
+def _check_config(cfg: ScorerConfig) -> None:
+    if cfg.backend != "auto":
+        raise _unported(f"backend={cfg.backend!r} (the port has one backend)")
+    if cfg.cost_type not in (0, 2):
+        raise _unported(f"cost_type={cfg.cost_type} (colour cost)")
+    if cfg.use_tree_occlusion:
+        raise _unported("use_tree_occlusion")
+    if cfg.do_icp:
+        if cfg.icp_mode != "fused":
+            raise _unported(f"icp_mode={cfg.icp_mode!r}")
+        if cfg.icp_source != "render":
+            raise _unported(f"icp_source={cfg.icp_source!r}")
+        if cfg.icp_render_scale > 1:
+            raise _unported("icp_render_scale > 1")
+        if cfg.cost_cloud != "transform":
+            raise _unported(f"cost_cloud={cfg.cost_cloud!r}")
+
+
+def _render_and_cloud(bank_tri_verts, bank_tri_colors, bank_tri_valid, poses,
+                      model_ids, proj, scene: ObservedScene, pose_labels,
+                      cfg: ScorerConfig, bank_backface):
+    out = render_pose_batch(
+        bank_tri_verts, bank_tri_colors, bank_tri_valid, poses, model_ids,
+        proj, width=cfg.width, height=cfg.height, stride=cfg.stride,
+        source_depth=scene.source_depth, source_label=scene.source_label,
+        pose_labels=pose_labels, occlusion_threshold=cfg.occlusion_threshold,
+        use_segmentation_label=cfg.use_segmentation_label,
+        use_tree_occlusion=cfg.use_tree_occlusion, roi_shape=cfg.roi_shape,
+        bank_backface=bank_backface)
+    cam = dict(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=cfg.width,
+               height=cfg.height, stride=cfg.stride,
+               depth_factor=cfg.depth_factor)
+    if cfg.roi_shape is not None:
+        cloud = depth_to_cloud_roi(out.depth, out.color, out.anchors, **cam)
+    else:
+        cloud = depth_to_cloud_batch(out.depth, out.color,
+                                     max_points=cfg.max_points_per_pose, **cam)
+    return out, cloud
+
+
+def _rotate(rot: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """rot [N, 3, 3] applied to pts [N, K, 3]. Element-wise products summed
+    in a fixed order (not a matmul), so the CPU and the card round alike."""
+    r = rot[:, None]
+    return (pts[..., 0:1] * r[..., 0] + pts[..., 1:2] * r[..., 1]
+            + pts[..., 2:3] * r[..., 2])
+
+
+def _compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for [N, 4, 4] transforms, summed in a fixed order as _rotate."""
+    return (a[:, :, 0:1] * b[:, 0:1] + a[:, :, 1:2] * b[:, 1:2]
+            + a[:, :, 2:3] * b[:, 2:3] + a[:, :, 3:4] * b[:, 3:4])
+
+
+def _icp_targets(scene: ObservedScene, labels: torch.Tensor,
+                 cfg: ScorerConfig) -> torch.Tensor:
+    """[N, k, 8] packed ICP targets: one "near" crop per segment around its
+    valid centroid, shared by every pose of that segment."""
+    s = scene.seg_xyz.shape[1]
+    k = min(cfg.icp_crop_targets or 256, s)
+    seg_pk = pack_targets(scene.seg_xyz, scene.seg_valid, scene.seg_normals)
+    if k >= s:
+        return seg_pk[labels]
+    if cfg.icp_crop_share != "label":
+        raise _unported(f"icp_crop_share={cfg.icp_crop_share!r}")
+    valid = scene.seg_valid
+    # Float64 sum, so the f32 centroid does not depend on the device's
+    # summation order.
+    segc = ((scene.seg_xyz.double() * valid[..., None]).sum(dim=1)
+            / torch.clamp(valid.sum(dim=1), min=1)[:, None]).float()
+    cidx = crop_targets(scene.seg_xyz, valid, segc, k, mode=cfg.icp_crop_mode)
+    cropped = torch.gather(seg_pk, 1, cidx[..., None].expand(-1, -1, 8))
+    return cropped[labels]
+
+
+def score_pose_batch(
+    bank_tri_verts: torch.Tensor,   # [M, T, 3, 3]
+    bank_tri_colors: torch.Tensor,  # [M, T, 3]
+    bank_tri_valid: torch.Tensor,   # [M, T]
+    poses: torch.Tensor,            # [N, 4, 4] model->camera (m)
+    model_ids: torch.Tensor,        # [N] int
+    pose_labels: torch.Tensor,      # [N] int 0-based segment labels
+    observed_total: torch.Tensor,   # [N] float32 observed points per pose
+    proj: torch.Tensor,             # [4, 4]
+    scene: ObservedScene,
+    cfg: ScorerConfig,
+    bank_backface: torch.Tensor | None = None,     # [M] bool
+    bank_icp_samples: torch.Tensor | None = None,  # [M, K, 3]
+    bank_icp_normals: torch.Tensor | None = None,  # [M, K, 3]
+) -> PoseScores:
+    """Render, refine and score one batch of candidate poses; pose i scores
+    against observed segment pose_labels[i]."""
+    _check_config(cfg)
+    labels = torch.clamp(pose_labels.long(), 0, scene.seg_xyz.shape[0] - 1)
+    ids = model_ids.long()
+    s_full = scene.seg_xyz.shape[1]
+    sc = min(cfg.cost_crop_targets or s_full, s_full)
+    cost_xyz = scene.seg_xyz[:, :sc][labels]
+    cost_valid = scene.seg_valid[:, :sc][labels]
+    if sc < s_full:
+        # The observed denominator counts the same cropped subset the
+        # explained numerator can reach.
+        observed_total = torch.minimum(
+            observed_total, cost_valid.sum(dim=1).to(observed_total.dtype))
+
+    render, cloud = _render_and_cloud(
+        bank_tri_verts, bank_tri_colors, bank_tri_valid, poses, ids, proj,
+        scene, labels, cfg, bank_backface)
+
+    adjusted = poses
+    explain_only = None
+    cloud_xyz, cloud_valid = cloud.xyz, cloud.valid
+    if cfg.do_icp:
+        ds = cfg.icp_downsample
+        delta = icp_fused(
+            cloud.xyz[:, ::ds], cloud.valid[:, ::ds],
+            _icp_targets(scene, labels, cfg),
+            max_iterations=cfg.icp_max_iterations,
+            max_correspondence=cfg.icp_max_correspondence,
+            nn_every=cfg.icp_nn_every,
+            rotation_epsilon=cfg.icp_rotation_epsilon,
+            transformation_epsilon=cfg.icp_transformation_epsilon,
+            stagnation_streak=cfg.icp_stagnation_streak)
+        adjusted = _compose(delta, poses)
+        # The cost cloud is the first-pass cloud moved rigidly by the delta.
+        moved = _rotate(delta[:, :3, :3], cloud.xyz) + delta[:, None, :3, 3]
+        cloud_xyz = torch.where(cloud.valid[..., None], moved, cloud.xyz)
+        if bank_icp_samples is not None:
+            # Explain-only front-hemisphere surface samples at the adjusted
+            # pose: they may explain observed points, never count as
+            # rendered ones.
+            samp = bank_icp_samples[ids]
+            snrm = bank_icp_normals[ids]
+            if cfg.cost_aug_samples and cfg.cost_aug_samples < samp.shape[1]:
+                step = -(-samp.shape[1] // cfg.cost_aug_samples)
+                samp, snrm = samp[:, ::step], snrm[:, ::step]
+            rot = adjusted[:, :3, :3]
+            aug_xyz = _rotate(rot, samp) + adjusted[:, None, :3, 3]
+            n_cam = _rotate(rot, snrm)
+            aug_valid = (n_cam[..., 0] * aug_xyz[..., 0]
+                         + n_cam[..., 1] * aug_xyz[..., 1]
+                         + n_cam[..., 2] * aug_xyz[..., 2]) < 0.0
+            n_b, p_b = cloud.valid.shape
+            k_b = aug_xyz.shape[1]
+            cloud_xyz = torch.cat([cloud_xyz, aug_xyz], dim=1)
+            cloud_valid = torch.cat([cloud.valid, aug_valid], dim=1)
+            explain_only = torch.cat(
+                [torch.zeros((n_b, p_b), dtype=torch.bool, device=poses.device),
+                 torch.ones((n_b, k_b), dtype=torch.bool, device=poses.device)],
+                dim=1)
+
+    costs = compute_costs_fused(
+        cloud_xyz, cloud_valid, render.pose_occluded, cost_xyz, cost_valid,
+        observed_total, sensor_resolution=cfg.sensor_resolution,
+        cloud_explain_only=explain_only)
+
+    invalid = costs.rendered_cost.to(torch.int32) < 0
+    total_f = costs.rendered_cost + costs.observed_cost
+    if cfg.use_clutter_mode:
+        total_f = total_f + cfg.clutter_regularizer * render.clutter_ratio
+    total = torch.where(invalid, -1, total_f.to(torch.int32))
+    return PoseScores(
+        total_cost=total,
+        rendered_cost=costs.rendered_cost,
+        observed_cost=costs.observed_cost,
+        points_diff_cost=costs.points_diff_cost,
+        adjusted_poses=adjusted,
+        pose_occluded=render.pose_occluded,
+        point_count=costs.pose_point_num,
+    )

@@ -1,0 +1,119 @@
+"""Localisation service: a long-lived recogniser behind a JSON/HTTP API.
+
+Counterpart of `perception_tpu/serve.py` for the greedy mode:
+
+    POST /localize   {"depth_image": [[...]], "label_mask": [[...]],
+                      "color_image": [[[...]]] | null, "depth_factor": 100,
+                      "cam_to_world": [[...4x4]] | null,
+                      "segmented_object_names": [...],
+                      "pose_lists": {"obj": [[x,y,z,qx,qy,qz,qw], ...]},
+                      "mode": "greedy"}
+                  -> {"detections": [{"name", "translation",
+                                      "quaternion_xyzw", "transform"}],
+                      "stats": {...}}
+    GET /status      the last /localize response
+
+Modes "tree" and "greedy_icp" and the /overlay.png view answer with an error:
+they are not ported yet (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import json
+from http.server import BaseHTTPRequestHandler, HTTPServer
+
+import numpy as np
+
+from perception_tpu_torch.pipeline.env import RecognitionInput
+
+
+class LocalizerService:
+    def __init__(self, recognizer):
+        self.recognizer = recognizer
+        self.last_response: dict | None = None
+
+    def handle(self, payload: dict) -> dict:
+        mode = payload.get("mode", "greedy")
+        if mode != "greedy":
+            raise NotImplementedError(
+                f"mode {mode!r} is not ported to PyTorch yet (only 'greedy')")
+        depth = np.asarray(payload["depth_image"], np.float64)
+        label = (np.asarray(payload["label_mask"], np.int32)
+                 if payload.get("label_mask") is not None else None)
+        color = (np.asarray(payload["color_image"], np.float32)
+                 if payload.get("color_image") is not None else None)
+        cam_to_world = np.asarray(
+            payload.get("cam_to_world") or np.eye(4).tolist(), np.float64)
+        rin = RecognitionInput(
+            depth_image=depth, color_image=color, label_mask=label,
+            depth_factor=float(payload.get("depth_factor", 100.0)),
+            cam_to_world=cam_to_world,
+            segmented_object_names=payload.get(
+                "segmented_object_names",
+                [s.name for s in self.recognizer.specs]),
+            use_external_pose_list=label is not None)
+        pose_lists = {k: np.asarray(v, np.float64)
+                      for k, v in (payload.get("pose_lists") or {}).items()}
+        result = self.recognizer.localize_objects_greedy_render(
+            rin, pose_lists)
+        stats = self.recognizer.env.stats
+        out = {
+            "detections": [
+                {
+                    "name": name,
+                    "translation": [pose.x, pose.y, pose.z],
+                    "quaternion_xyzw": list(pose.quaternion()),
+                    "transform": np.asarray(tf, float).tolist(),
+                }
+                for name, pose, tf in zip(result.names, result.poses,
+                                          result.object_transforms)
+            ],
+            "stats": {
+                "scenes_rendered": stats.scenes_rendered,
+                "time": stats.time,
+                "gpu_time": stats.gpu_time,
+            },
+        }
+        self.last_response = out
+        return out
+
+
+def serve(recognizer, port: int = 8765) -> HTTPServer:
+    """An HTTPServer on 127.0.0.1:port (0 = any free port); the caller runs
+    serve_forever() and shutdown()."""
+    service = LocalizerService(recognizer)
+
+    class Handler(BaseHTTPRequestHandler):
+        def _reply(self, code: int, body: dict) -> None:
+            data = json.dumps(body).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_POST(self):
+            if self.path != "/localize":
+                self.send_error(404)
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                out = service.handle(json.loads(self.rfile.read(length)))
+            except Exception as exc:   # report errors to the client
+                self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
+                return
+            self._reply(200, out)
+
+        def do_GET(self):
+            if self.path == "/status":
+                self._reply(200, service.last_response or {})
+            elif self.path == "/overlay.png":
+                self._reply(501, {"error": "/overlay.png is not ported to "
+                                           "PyTorch yet"})
+            else:
+                self.send_error(404)
+
+        def log_message(self, *args):
+            pass
+
+    return HTTPServer(("127.0.0.1", port), Handler)

@@ -1,0 +1,223 @@
+"""The PyTorch port's scoring slice against the JAX package, and the port's
+rules: no jax import, the same ScorerConfig, twins on CPU tensors, and a
+NotImplementedError for every branch that is not ported.
+
+The JAX reference runs its main path as a TPU does: the direct raster, fused
+ICP and fused cost Pallas kernels in interpret mode
+(kernel_backend="pallas_direct_interpret", icp_mode="fused").
+
+Slice tolerance: XLA's CPU backend contracts a*b+c into FMAs where PyTorch
+rounds every product, so an ICP association can pick another target at a
+quantised near-tie; Gauss-Newton amplifies that along weakly constrained
+rotations of near-convex models. Adjusted translations must agree to 1 mm;
+total costs (integer percentages) must be equal for >= 75% of the poses and
+within 5 everywhere.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from perception_tpu.core.pose import ContPose
+from perception_tpu.core.state import ObjectState
+from perception_tpu.pipeline import scorer as jscorer
+from perception_tpu_torch import convert
+from perception_tpu_torch.kernels import build
+from perception_tpu_torch.pipeline import scorer as pscorer
+
+from tests.test_pipeline import gt_states, make_env
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_MODULES = (
+    "perception_tpu_torch", "perception_tpu_torch.kernels.build",
+    "perception_tpu_torch.convert", "perception_tpu_torch.core.mesh",
+    "perception_tpu_torch.ops.rasterizer",
+    "perception_tpu_torch.ops.raster_direct",
+    "perception_tpu_torch.ops.pointcloud", "perception_tpu_torch.ops.knn",
+    "perception_tpu_torch.ops.icp", "perception_tpu_torch.ops.icp_fused",
+    "perception_tpu_torch.ops.cost", "perception_tpu_torch.ops.cost_fused",
+    "perception_tpu_torch.pipeline.scorer",
+    "perception_tpu_torch.pipeline.env",
+    "perception_tpu_torch.pipeline.recognizer", "perception_tpu_torch.serve",
+    "perception_tpu_torch.eval.bench_scene")
+
+
+def _assert_slice_close(ref, out):
+    r_tot, o_tot = np.asarray(ref.total_cost), out.total_cost.numpy()
+    assert (r_tot >= 0).any()
+    np.testing.assert_array_equal(o_tot < 0, r_tot < 0)
+    assert (r_tot == o_tot).mean() >= 0.75, (r_tot, o_tot)
+    assert np.abs(r_tot - o_tot).max() <= 5, (r_tot, o_tot)
+    r_adj, o_adj = np.asarray(ref.adjusted_poses), out.adjusted_poses.numpy()
+    np.testing.assert_allclose(o_adj[:, :3, 3], r_adj[:, :3, 3], atol=1e-3)
+
+
+def _score_both(bank_arrays, args, cfg, icp_samples, icp_normals):
+    """Score the same inputs (JAX arrays) with JAX and with the port."""
+    verts, colors, valid, backface = bank_arrays
+    poses, ids, labels, totals, proj, scene = args
+    ref = jscorer.score_pose_batch(
+        verts, colors, valid, poses, ids, labels, totals, proj, scene, cfg,
+        bank_backface=backface, bank_icp_samples=icp_samples,
+        bank_icp_normals=icp_normals)
+    t = convert.tensor
+    out = pscorer.score_pose_batch(
+        t(verts), t(colors), t(valid), t(poses), t(ids), t(labels),
+        t(totals), t(proj), convert.scene_from_jax(scene),
+        convert.scorer_config_from_jax(cfg), bank_backface=t(backface),
+        bank_icp_samples=t(icp_samples), bank_icp_normals=t(icp_normals))
+    return ref, out
+
+
+def _box_candidates(n, seed):
+    rng = np.random.default_rng(seed)
+    gt = gt_states()
+    cands = []
+    for k in range(n):
+        obj = gt[k % 2]
+        j = rng.normal(0, 0.003, 3)
+        cands.append(ObjectState(
+            id=obj.id, symmetric=False,
+            pose=ContPose.from_quat(obj.pose.x + j[0], obj.pose.y + j[1],
+                                    obj.pose.z + j[2], *obj.pose.quaternion()),
+            segmentation_label_id=obj.segmentation_label_id))
+    return cands
+
+
+@pytest.mark.parametrize("roi_size", [0, 20])
+def test_score_pose_batch_box_scene_matches_jax(roi_size):
+    """The test_pipeline box scene, full frame (roi_size=0, compacted
+    clouds) and ROI windows."""
+    env = make_env()
+    env.env = dataclasses.replace(env.env, icp_mode="fused", roi_size=roi_size,
+                                  kernel_backend="pallas_direct_interpret")
+    env.set_observation_from_states(gt_states())
+    cands = _box_candidates(8, seed=roi_size)
+    cfg = env._scorer_config(do_icp=True)
+    poses = np.stack([env.pose_to_camera(s) for s in cands])
+    ids = np.asarray([s.id for s in cands], np.int32)
+    labels = np.asarray([s.segmentation_label_id - 1 for s in cands], np.int32)
+    totals = np.asarray(env._observed.seg_count, np.float32)[labels]
+    ref, out = _score_both(
+        env._render_bank,
+        (jnp.asarray(poses), jnp.asarray(ids), jnp.asarray(labels),
+         jnp.asarray(totals), env._proj, env._scene),
+        cfg, env._bank_icp_samples, env._bank_icp_normals)
+    _assert_slice_close(ref, out)
+
+
+def test_score_pose_batch_bench_problem_matches_jax(monkeypatch):
+    """benchmarks/bench_scene.py's problem at 16 poses (ROI 32, LOD bank,
+    label-shared crop, explain-only samples)."""
+    from benchmarks.bench_scene import build_bench_problem
+
+    monkeypatch.setenv("BENCH_MODELS", "blob")
+    env, _, args, cfg = build_bench_problem(n_poses=16)
+    cfg = dataclasses.replace(cfg, icp_mode="fused",
+                              backend="pallas_direct_interpret")
+    ref, out = _score_both(env._render_bank, args[3:], cfg,
+                           env._bank_icp_samples, env._bank_icp_normals)
+    _assert_slice_close(ref, out)
+
+
+def test_port_bench_problem_matches_jax(monkeypatch):
+    """The jax-free build_bench_problem makes the same bank, candidates and
+    scene: the observations differ only on silhouette pixels (the port
+    renders them with the direct kernel, JAX off a TPU with its XLA
+    raster)."""
+    from benchmarks.bench_scene import build_bench_problem
+    from perception_tpu_torch.eval.bench_scene import (
+        build_bench_problem as port_build,
+    )
+
+    monkeypatch.setenv("BENCH_MODELS", "blob")
+    env, cands, args, _ = build_bench_problem(n_poses=12)
+    bp = port_build(n_poses=12, model_kind="blob")
+    for i in range(8):
+        np.testing.assert_array_equal(bp.args[i].numpy(), np.asarray(args[i]),
+                                      str(i))
+    assert [c.pose.x for c in bp.candidates] == [c.pose.x for c in cands]
+    ref_count = np.asarray(env._observed.seg_count)
+    out_count = bp.env._observed.seg_count.numpy()
+    np.testing.assert_allclose(out_count, ref_count, rtol=0.02)
+    assert list(ref_count[[0, 3]]) == [0, 0]    # GT object 0 is out of frame
+    np.testing.assert_array_equal(
+        bp.env._bank_icp_samples.numpy(), np.asarray(env._bank_icp_samples))
+
+
+def test_scorer_config_fields_match_jax():
+    jf = {f.name: f.default for f in dataclasses.fields(jscorer.ScorerConfig)}
+    pf = {f.name: f.default for f in dataclasses.fields(pscorer.ScorerConfig)}
+    assert pf == jf
+
+
+def test_port_never_imports_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _small_problem():
+    env = make_env()
+    env.env = dataclasses.replace(env.env, icp_mode="fused",
+                                  kernel_backend="pallas_direct_interpret")
+    env.set_observation_from_states(gt_states())
+    cfg = convert.scorer_config_from_jax(env._scorer_config(do_icp=True))
+    cands = _box_candidates(2, seed=1)
+    t = convert.tensor
+    verts, colors, valid, backface = (t(a) for a in env._render_bank)
+    args = (verts, colors, valid,
+            t(np.stack([env.pose_to_camera(s) for s in cands])),
+            t([s.id for s in cands]), t([0, 1]),
+            t(np.asarray(env._observed.seg_count, np.float32)[:2]),
+            t(env._proj), convert.scene_from_jax(env._scene))
+    kw = dict(bank_backface=backface,
+              bank_icp_samples=t(env._bank_icp_samples),
+              bank_icp_normals=t(env._bank_icp_normals))
+    return args, cfg, kw
+
+
+def test_cpu_calls_run_the_twins():
+    args, cfg, kw = _small_problem()
+    build.reset_counts()
+    pscorer.score_pose_batch(*args, cfg, **kw)
+    assert set(build.TWIN_CALLS) == {"raster_direct", "icp_fused",
+                                     "cost_fused"}
+    assert sum(build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("change", [
+    dict(icp_mode="nn"), dict(icp_mode="projective"), dict(icp_mode="gicp"),
+    dict(icp_mode="fused_d2d"), dict(icp_mode="fused_d2d_exact"),
+    dict(icp_nn_every=0), dict(icp_source="model"),
+    dict(cost_cloud="render"), dict(icp_render_scale=2), dict(cost_type=3),
+    dict(cost_type=1), dict(use_tree_occlusion=True), dict(backend="xla"),
+    dict(icp_crop_share="pose"), dict(icp_crop_mode="spread"),
+])
+def test_unported_scorer_branches_raise(change):
+    args, cfg, kw = _small_problem()
+    with pytest.raises(NotImplementedError):
+        pscorer.score_pose_batch(*args, dataclasses.replace(cfg, **change),
+                                 **kw)
+
+
+def test_unported_kernel_modes_raise():
+    from perception_tpu_torch.ops.icp_fused import icp_fused
+
+    src = torch.zeros((1, 8, 3))
+    valid = torch.ones((1, 8), dtype=torch.bool)
+    tgt = torch.zeros((1, 8, 8))
+    for kw in (dict(src_normals=src), dict(d2d_epsilon=0.05),
+               dict(exact=True), dict(nn_every=0)):
+        with pytest.raises(NotImplementedError):
+            icp_fused(src, valid, tgt, **kw)
