@@ -5,16 +5,26 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the three hand-written kernels from `perception_tpu_torch/csrc/`,
-holds each against its plain PyTorch twin on the card at the shapes of the
-scoring benchmark (benchmarks/bench_scene.py: bumpy1024 models, 2048 poses,
-ROI 32), scores the batch on the card and again on the CPU twins, and then
-serves three /localize requests through the port's HTTP service, checking
-the detections against the ground truth. Every phase prints one JSON line;
-the run ends with a {"kernels": [...]} line, the card's `nvidia-smi` name and
-power limit, and {"ok": true, "device": {...}}. Any failed check raises and
-the exit code is non-zero. There is no CPU fallback: without a CUDA device
-the script exits with code 2 and prints nothing on stdout.
+It builds the hand-written kernels from `perception_tpu_torch/csrc/`, holds
+each against its plain PyTorch twin on the card at the shapes of the scoring
+benchmark (bumpy1024 models, 2048 poses; the depth-only and the colour-gated
+cost, ROI 32 and full frame), scores the batch on the card and again on the
+CPU twins, and serves /localize requests through the port's HTTP service on
+three paths (depth ROI, colour ROI, colour full frame), checking the
+detections against the ground truth. The launch counts are set to 0 just
+before each served path and read just after it. Every phase prints one JSON
+line; the run ends with a {"kernels": [...]} line, the card's `nvidia-smi`
+name and power limit, and {"ok": true, "device": {...}}. Any failed check
+raises and the exit code is non-zero. There is no CPU fallback: without a
+CUDA device the script exits with code 2 and prints nothing on stdout.
+
+`bound_ms` is the least time the H100 could take for a kernel's work: the
+larger of its float32 operations over 67 TFLOP/s and its bytes (each input
+read once, each output written once) over 3.35 TB/s. Operations per element
+are counted from the kernels' sources (the *_OPS constants below); the
+raster counts the pixels inside each drawn triangle's screen bounding box,
+ICP the iterations and association sweeps each pose of this run ran, the
+colour gate the points of this run that reach it.
 """
 
 from __future__ import annotations
@@ -34,7 +44,13 @@ import torch
 
 from perception_tpu_torch.eval.bench_scene import build_bench_problem
 from perception_tpu_torch.kernels import build
-from perception_tpu_torch.ops import cost, cost_fused, icp_fused, raster_direct
+from perception_tpu_torch.ops import (
+    cost,
+    cost_fused,
+    cost_fused_color,
+    icp_fused,
+    raster_direct,
+)
 from perception_tpu_torch.pipeline import scorer
 from perception_tpu_torch.pipeline.recognizer import ObjectRecognizer
 from perception_tpu_torch.serve import serve
@@ -42,18 +58,62 @@ from perception_tpu_torch.serve import serve
 N_POSES = 2048
 N_CPU = 256
 INVALID_KEY = 2**31 - 1
-# name -> (module, twin, source, TPU kernel it replaces)
+FP32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
+HBM_BYTES = 3.35e12       # H100 SXM HBM3
+# Float32 operations per element, counted in csrc/*.cu.
+RASTER_PAIR_OPS = 16      # 4 plane evaluations (2 mul + 2 add) per pixel x tri
+RASTER_TRI_OPS = 130      # per-pose triangle setup
+ICP_PAIR_OPS = 8          # expanded-form distance per source x target
+ICP_POINT_OPS = 120       # transform, residual, Jacobian, 29 sums per point
+COST_PAIR_OPS = 9         # 3 sub, 3 mul, 3 add per point x target
+CIEDE_OPS = 160           # one CIEDE2000 per gated point
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    prepare: object
+    launch: object
+    twin: object
+    source: str
+    replaces: str
+
+
 KERNELS = {
-    "raster_direct": (raster_direct, raster_direct.rasterize_direct_twin,
-                      "perception_tpu_torch/csrc/raster_direct.cu",
-                      "perception_tpu/ops/pallas_raster_direct.py:320"),
-    "icp_fused": (icp_fused, icp_fused.icp_fused_twin,
-                  "perception_tpu_torch/csrc/icp_fused.cu",
-                  "perception_tpu/ops/pallas_icp.py:632"),
-    "cost_fused": (cost_fused, cost_fused.nn_cost_fused_twin,
-                   "perception_tpu_torch/csrc/cost_fused.cu",
-                   "perception_tpu/ops/pallas_cost.py:221"),
+    "raster_direct": Kernel(
+        raster_direct.prepare_inputs, raster_direct.launch_kernel,
+        raster_direct.rasterize_direct_twin,
+        "perception_tpu_torch/csrc/raster_direct.cu",
+        "perception_tpu/ops/pallas_raster_direct.py:320"),
+    "icp_fused": Kernel(
+        icp_fused.prepare_inputs, icp_fused.launch_kernel,
+        icp_fused.icp_fused_twin, "perception_tpu_torch/csrc/icp_fused.cu",
+        "perception_tpu/ops/pallas_icp.py:632"),
+    "cost_fused": Kernel(
+        cost_fused.prepare_inputs, cost_fused.launch_kernel,
+        cost_fused.nn_cost_fused_twin,
+        "perception_tpu_torch/csrc/cost_fused.cu",
+        "perception_tpu/ops/pallas_cost.py:221"),
+    "cost_fused_color": Kernel(
+        cost_fused_color.prepare_inputs, cost_fused_color.launch_kernel,
+        cost_fused_color.nn_cost_fused_color_twin,
+        "perception_tpu_torch/csrc/cost_fused_color.cu",
+        "perception_tpu/ops/pallas_cost.py:274"),
+    "cost_fused_color_tri": Kernel(
+        cost_fused_color.prepare_inputs_tri,
+        cost_fused_color.launch_kernel_tri,
+        cost_fused_color.nn_cost_fused_color_tri_twin,
+        "perception_tpu_torch/csrc/cost_fused_color.cu",
+        "perception_tpu/ops/pallas_cost.py:361"),
 }
+# The wrapper each kernel is recorded at: (module, attribute).
+SITES = {
+    "raster_direct": (raster_direct, "rasterize_direct"),
+    "icp_fused": (scorer, "icp_fused"),
+    "cost_fused": (cost, "nn_cost_fused"),
+    "cost_fused_color": (cost, "nn_cost_fused_color"),
+    "cost_fused_color_tri": (cost, "nn_cost_fused_color_tri"),
+}
+DEPTH = ("raster_direct", "icp_fused", "cost_fused")
 
 
 def emit(obj: dict) -> None:
@@ -69,8 +129,8 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
-    """Median CUDA-event time of fn() in ms."""
+def event_times(fn, warmup: int = 3, reps: int = 20) -> list[float]:
+    """CUDA-event times of fn() in ms, one per run."""
     for _ in range(warmup):
         fn()
     sync()
@@ -83,7 +143,12 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+    """Median CUDA-event time of fn() in ms."""
+    return statistics.median(event_times(fn, warmup, reps))
 
 
 @contextlib.contextmanager
@@ -91,10 +156,7 @@ def recorded_kernel_calls():
     """Record the first call of each kernel wrapper made by the pipeline
     (its arguments exactly as the main path gives them)."""
     seen: dict[str, tuple] = {}
-    sites = [(raster_direct, "rasterize_direct", "raster_direct"),
-             (scorer, "icp_fused", "icp_fused"),
-             (cost, "nn_cost_fused", "cost_fused")]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in SITES.items()}
 
     def recorder(fn, name):
         def call(*args, **kwargs):
@@ -102,13 +164,87 @@ def recorded_kernel_calls():
             return fn(*args, **kwargs)
         return call
 
-    for (mod, attr, name), (_, _, fn) in zip(sites, saved):
-        setattr(mod, attr, recorder(fn, name))
+    for name, (mod, attr) in SITES.items():
+        setattr(mod, attr, recorder(saved[name], name))
     try:
         yield seen
     finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+        for name, (mod, attr) in SITES.items():
+            setattr(mod, attr, saved[name])
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def raster_pairs(pargs: tuple, pkw: dict) -> int:
+    """(pixel, triangle) pairs a bounding-box rasteriser must test at these
+    inputs: per pose and drawable triangle, the strided pixels of the ROI
+    inside the triangle's screen bounding box."""
+    verts16, pose12, model_ids, anchors, proj12 = pargs
+    width, height, stride = pkw["width"], pkw["height"], pkw["stride"]
+    coefs = raster_direct._triangle_setup(verts16, pose12, model_ids, proj12,
+                                          width, height)
+    drawable = torch.isfinite(coefs[:, 8])          # [N, T]
+    v = verts16[model_ids.long()]                   # [N, 16, T]
+    p = [pose12[:, i:i + 1] for i in range(12)]
+    pr = proj12.tolist()
+    sx, sy = [], []
+    for k in range(3):
+        vx, vy, vz = v[:, 3 * k], v[:, 3 * k + 1], v[:, 3 * k + 2]
+        x = (p[0] * vx + p[1] * vy + p[2] * vz + p[3]) * 100.0
+        y = (p[4] * vx + p[5] * vy + p[6] * vz + p[7]) * 100.0
+        z = (p[8] * vx + p[9] * vy + p[10] * vz + p[11]) * 100.0
+        zdiv = torch.where(z > 1e-3, z, 1.0)
+        sx.append((x * pr[0] + y * pr[1] + z * pr[2] + pr[3]) / zdiv
+                  * (width / 2) + width / 2)
+        sy.append((y * pr[5] + z * pr[6] + pr[7]) / zdiv
+                  * (height / 2) + height / 2)
+    sx, sy = torch.stack(sx), torch.stack(sy)       # [3, N, T]
+    ax, ay = anchors[:, 0:1].float(), anchors[:, 1:2].float()
+    # Pixel column i sits at x = (ax + i) * stride, row j at
+    # y = height - 1 - (ay + j) * stride.
+    i0 = (torch.ceil(sx.amin(0) / stride) - ax).clamp(min=0)
+    i1 = (torch.floor(sx.amax(0) / stride) - ax).clamp(max=pkw["roi_w"] - 1)
+    j0 = (torch.ceil((height - 1 - sy.amax(0)) / stride) - ay).clamp(min=0)
+    j1 = (torch.floor((height - 1 - sy.amin(0)) / stride)
+          - ay).clamp(max=pkw["roi_h"] - 1)
+    cols = (i1 - i0 + 1).clamp(min=0)
+    rows = (j1 - j0 + 1).clamp(min=0)
+    return int((cols * rows * drawable).sum().item())
+
+
+def work(name: str, pargs: tuple, pkw: dict, out, twin_extra) -> tuple:
+    """(float32 operations, bytes) of one call at these inputs."""
+    outs = out if isinstance(out, tuple) else (out,)
+    moved = nbytes(pargs) + nbytes(outs)
+    if name == "raster_direct":
+        n, t = pargs[1].shape[0], pargs[0].shape[2]
+        return (raster_pairs(pargs, pkw) * RASTER_PAIR_OPS
+                + n * t * RASTER_TRI_OPS), moved
+    if name == "icp_fused":
+        _, p, _ = pargs[0].shape
+        s = pargs[2].shape[1]
+        iters = twin_extra                      # [N] iterations per pose
+        sweeps = torch.ceil(iters / max(pkw["nn_every"], 1))
+        ops = (sweeps.sum().item() * p * s * ICP_PAIR_OPS
+               + iters.sum().item() * p * ICP_POINT_OPS)
+        return ops, moved
+    n, p, _ = pargs[0].shape
+    s = pargs[-2 if name != "cost_fused" else 2].shape[1]
+    ops = n * p * s * COST_PAIR_OPS
+    if name != "cost_fused":
+        ops += twin_extra * CIEDE_OPS           # points that reach the gate
+    return ops, moved
+
+
+def gated_points(pargs: tuple, pkw: dict) -> int:
+    """Points of a colour-kernel call that evaluate CIEDE2000: close to
+    their winner and not explain-only."""
+    cloud, cadd, tgt4 = pargs[0], pargs[1], pargs[-2]
+    dmin, _ = cost_fused.nearest(cloud, tgt4)
+    return int(((dmin <= pkw["max_dist_sq"]) & (cadd == 0.0)).sum())
 
 
 def compare(name: str, kernel_out, twin_out) -> dict:
@@ -138,21 +274,32 @@ def compare(name: str, kernel_out, twin_out) -> dict:
     same = torch.stack([a == b for a, b in zip(kernel_out, twin_out)]).all(0)
     err = max((a - b).abs().max().item() for a, b in zip(kernel_out, twin_out))
     frac = same.float().mean().item()
-    require(frac >= 0.999, f"cost counts equal on {frac:.4f} < 0.999")
+    require(frac >= 0.999, f"{name} counts equal on {frac:.4f} < 0.999")
     return {"equal_frac": frac, "max_abs_err": err, "err_unit": "count"}
 
 
 def kernel_phase(name: str, call: tuple, label: str) -> dict:
-    mod, twin, _, _ = KERNELS[name]
+    k = KERNELS[name]
     args, kwargs = call
-    pargs, pkw = mod.prepare_inputs(*args, **kwargs)
-    out_k = mod.launch_kernel(*pargs, **pkw)
+    pargs, pkw = k.prepare(*args, **kwargs)
+    out_k = k.launch(*pargs, **pkw)
     sync()
-    out_t = twin(*pargs, **pkw)
+    extra = None
+    if name == "icp_fused":
+        out_t, extra = k.twin(*pargs, **pkw, return_iterations=True)
+    else:
+        out_t = k.twin(*pargs, **pkw)
+        if name.startswith("cost_fused_color"):
+            extra = gated_points(pargs, pkw)
     sync()
     result = compare(name, out_k, out_t)
-    result["ms"] = time_ms(lambda: mod.launch_kernel(*pargs, **pkw))
-    result["plain_ms"] = time_ms(lambda: twin(*pargs, **pkw))
+    result["ms"] = time_ms(lambda: k.launch(*pargs, **pkw))
+    result["plain_ms"] = time_ms(lambda: k.twin(*pargs, **pkw))
+    ops, moved = work(name, pargs, pkw, out_k, extra)
+    t_ops, t_bytes = ops / FP32_FLOPS * 1e3, moved / HBM_BYTES * 1e3
+    result.update(ops=ops, bytes=moved, bound_ms=max(t_ops, t_bytes),
+                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                  library_ms=None)
     shapes = [list(a.shape) for a in pargs if isinstance(a, torch.Tensor)]
     emit({"phase": "kernel", "kernel": name, "case": label,
           "shapes": shapes, **result})
@@ -164,23 +311,18 @@ def cpu_scene(scene: scorer.ObservedScene) -> scorer.ObservedScene:
                                    for f in dataclasses.fields(scene)})
 
 
-def check_kernels(bp) -> dict:
-    """Run each kernel and its twin on the inputs the scoring batch (and the
-    full-frame observation render) hands the wrapper; compare and time."""
+def check_kernels(bp, path: tuple, label: str) -> dict:
+    """The scoring batch must call exactly the kernels of `path`; run each
+    of them and its twin on the inputs the batch hands its wrapper; compare
+    and time."""
     with recorded_kernel_calls() as calls:
         bp.score()
-    with recorded_kernel_calls() as frame_calls:
-        bp.env.render_composite(bp.gt)
     sync()
-    require(set(calls) == set(KERNELS), f"scoring called {sorted(calls)}")
-    results = {name: kernel_phase(name, calls[name], "scoring batch")
-               for name in KERNELS}
-    kernel_phase("raster_direct", frame_calls["raster_direct"],
-                 "observation 640x480 stride 1")
-    return results
+    require(set(calls) == set(path), f"{label} called {sorted(calls)}")
+    return {name: kernel_phase(name, calls[name], label) for name in path}
 
 
-def check_slice(bp) -> None:
+def check_slice(bp, label: str) -> None:
     """score_pose_batch on the card; its first N_CPU poses on the CPU."""
     n = len(bp.candidates)
     out = bp.score()
@@ -188,12 +330,9 @@ def check_slice(bp) -> None:
     require(out.total_cost.shape == (n,), "total_cost shape")
     require(bool(torch.isfinite(out.adjusted_poses).all()),
             "adjusted poses finite")
-    runs = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        bp.score()
-        sync()
-        runs.append((time.perf_counter() - t0) * 1e3)
+    # CUDA events around the whole batch: the stream's idle gaps between
+    # its launches count.
+    runs = event_times(bp.score, warmup=1, reps=10)
     batch_ms = statistics.median(runs)
     verts, colors, valid, poses, ids, labels, totals, proj, scene = bp.args
     env = bp.env
@@ -204,7 +343,8 @@ def check_slice(bp) -> None:
         proj.cpu(), cpu_scene(scene), bp.cfg,
         bank_backface=env._render_bank[3].cpu(),
         bank_icp_samples=env._bank_icp_samples.cpu(),
-        bank_icp_normals=env._bank_icp_normals.cpu())
+        bank_icp_normals=env._bank_icp_normals.cpu(),
+        bank_tri_lab=env._render_bank_lab.cpu())
     cpu_s = time.perf_counter() - t0
     g_tot = out.total_cost[:N_CPU].cpu()
     tot_eq = (g_tot == ref.total_cost).float().mean().item()
@@ -212,23 +352,27 @@ def check_slice(bp) -> None:
     trans = (out.adjusted_poses[:N_CPU, :3, 3].cpu()
              - ref.adjusted_poses[:, :3, 3]).abs().amax(dim=1)
     trans_ok = (trans <= 1e-3).float().mean().item()
-    emit({"phase": "slice", "poses": n, "batch_ms": batch_ms,
+    valid_tot = out.total_cost[out.total_cost >= 0].float()
+    emit({"phase": "slice", "case": label, "poses": n, "batch_ms": batch_ms,
           "batch_ms_runs": runs, "poses_per_s": n / batch_ms * 1e3,
           "valid_poses": int((out.total_cost >= 0).sum()),
+          "median_valid_total": valid_tot.median().item(),
           "cpu_twin_poses": N_CPU, "cpu_twin_s": cpu_s,
           "total_equal_frac": tot_eq, "total_max_diff": tot_diff,
           "total_differs_at": torch.nonzero(g_tot != ref.total_cost)
           .flatten().tolist(),
           "translation_within_1mm_frac": trans_ok})
-    require(tot_eq >= 0.98, f"total_cost equal on {tot_eq:.3f} < 0.98")
-    require(tot_diff <= 2, f"total_cost differs by {tot_diff} > 2")
-    require(trans_ok >= 0.98, f"translations within 1 mm on {trans_ok:.3f}")
+    require(tot_eq >= 0.98, f"{label}: total_cost equal on {tot_eq:.3f}")
+    require(tot_diff <= 2, f"{label}: total_cost differs by {tot_diff} > 2")
+    require(trans_ok >= 0.98,
+            f"{label}: translations within 1 mm on {trans_ok:.3f}")
 
 
-def check_served_path(bp, dev) -> tuple[dict, dict]:
-    """Recogniser from the bench models, the port's own GT observation, then
-    three /localize requests with every candidate; returns the kernel
-    launches and twin calls counted during the requests alone."""
+def check_served_path(bp, dev, label: str, requests: int) -> dict:
+    """Recogniser from the bench models and configuration, the port's own
+    GT observation (with its colour image), then `requests` /localize
+    requests with every candidate. Returns the kernel launches and twin
+    calls counted during the requests alone."""
     env = bp.env
     rec = ObjectRecognizer.from_models(env.bank.models, env.camera, env.perch,
                                        env.env, t_cap=1024, device=dev)
@@ -242,14 +386,18 @@ def check_served_path(bp, dev) -> tuple[dict, dict]:
     for c in bp.candidates:
         pose_lists.setdefault(names[c.id], []).append(
             [c.pose.x, c.pose.y, c.pose.z, *c.pose.quaternion()])
-    body = json.dumps({
+    payload = {
         "depth_image": np.asarray(rin.depth_image).tolist(),
         "label_mask": np.asarray(rin.label_mask).tolist(),
         "depth_factor": rin.depth_factor,
         "cam_to_world": np.asarray(rin.cam_to_world).tolist(),
         "segmented_object_names": names,
         "pose_lists": pose_lists,
-        "mode": "greedy"}).encode()
+        "mode": "greedy"}
+    color = env.perch.use_color_cost
+    if color:
+        payload["color_image"] = np.asarray(rin.color_image).tolist()
+    body = json.dumps(payload).encode()
     server = serve(rec, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -258,7 +406,7 @@ def check_served_path(bp, dev) -> tuple[dict, dict]:
     stats = rec.env.stats
     try:
         build.reset_counts()
-        for _ in range(3):
+        for _ in range(requests):
             gpu0 = stats.gpu_time
             t0 = time.perf_counter()
             req = urllib.request.Request(
@@ -267,11 +415,13 @@ def check_served_path(bp, dev) -> tuple[dict, dict]:
                 responses.append(json.loads(resp.read()))
             latency.append((time.perf_counter() - t0) * 1e3)
             # Host-clock split of the request (the server runs in this
-            # process): observed-scene build, greedy scoring + argmin, and
-            # the scoring dispatch inside it.
-            split.append({"set_input_ms": stats.input_time * 1e3,
-                          "greedy_ms": stats.time * 1e3,
-                          "score_batch_ms": (stats.gpu_time - gpu0) * 1e3})
+            # process): payload decode, observed-scene build, greedy scoring
+            # + argmin, and the scoring dispatch inside it.
+            split.append({
+                "decode_ms": responses[-1]["stats"]["decode_time"] * 1e3,
+                "set_input_ms": stats.input_time * 1e3,
+                "greedy_ms": stats.time * 1e3,
+                "score_batch_ms": (stats.gpu_time - gpu0) * 1e3})
         launches = dict(build.LAUNCHES)
         twins = dict(build.TWIN_CALLS)
     finally:
@@ -279,13 +429,8 @@ def check_served_path(bp, dev) -> tuple[dict, dict]:
         server.server_close()
         thread.join(timeout=30)
     require(not thread.is_alive(), "server thread stopped")
-    # The handler's two largest host stages outside those spans, timed
-    # once here on the same request: payload decode and candidate pruning.
-    t0 = time.perf_counter()
-    payload = json.loads(body)
-    np.asarray(payload["depth_image"], np.float64)
-    np.asarray(payload["label_mask"], np.int32)
-    decode_ms = (time.perf_counter() - t0) * 1e3
+    # The handler's largest host stage outside those spans, timed once here
+    # on the same request: candidate generation and validity pruning.
     t0 = time.perf_counter()
     rec.env.generate_successors_6dof(
         {k: np.asarray(v, np.float64) for k, v in pose_lists.items()})
@@ -294,19 +439,36 @@ def check_served_path(bp, dev) -> tuple[dict, dict]:
     for out in responses:
         dets = {d["name"]: d for d in out["detections"]}
         for i in visible:
-            require(names[i] in dets, f"{names[i]} not detected")
+            require(names[i] in dets, f"{label}: {names[i]} not detected")
             gt = bp.gt[i].pose
             err = float(np.linalg.norm(np.asarray(dets[names[i]]["translation"])
                                        - [gt.x, gt.y, gt.z]))
             errors_mm.setdefault(names[i], []).append(err * 1e3)
-            require(err < 0.02, f"{names[i]} off by {err * 1e3:.1f} mm")
-    emit({"phase": "serve", "requests": len(responses),
+            require(err < 0.02,
+                    f"{label}: {names[i]} off by {err * 1e3:.1f} mm")
+    emit({"phase": "serve", "case": label, "requests": len(responses),
+          "color_image": color, "payload_mb": len(body) / 1e6,
           "latency_ms": latency, "latency_split": split,
-          "decode_ms": decode_ms, "successors_ms": successors_ms,
+          "successors_ms": successors_ms,
           "candidates": len(bp.candidates),
           "detection_error_mm": errors_mm, "launches": launches,
-          "twin_calls": twins, "jax_imported": "jax" in sys.modules})
-    return launches, twins
+          "twin_calls": twins,
+          "jax_package_imported": sorted(
+              m for m in sys.modules
+              if m.split(".")[0] in ("jax", "perception_tpu", "benchmarks"))})
+    require(sum(twins.values()) == 0, f"{label}: twins ran: {twins}")
+    return launches
+
+
+def problem(dev, **kw):
+    t0 = time.perf_counter()
+    bp = build_bench_problem(n_poses=N_POSES, model_kind="bumpy1024",
+                             device=dev, **kw)
+    sync()
+    emit({"phase": "bench_problem", "poses": N_POSES, **kw,
+          "seconds": time.perf_counter() - t0,
+          "seg_count": bp.env._observed.seg_count.tolist()})
+    return bp
 
 
 def main() -> int:
@@ -336,30 +498,58 @@ def main() -> int:
           "ptxas": [l.strip() for l in build.build_log.splitlines()
                     if "registers" in l or "spill" in l]})
 
-    # 3. Each kernel against its twin, at the shapes the main path gives it.
-    t0 = time.perf_counter()
-    bp = build_bench_problem(n_poses=N_POSES, model_kind="bumpy1024",
-                             device=dev)
+    # 3. Each kernel against its twin, at the shapes the main path gives it:
+    # the depth-only ROI batch (and the full-frame observation render), the
+    # colour ROI batch and the colour full-frame batch.
+    depth = problem(dev)
+    results = check_kernels(depth, DEPTH, "scoring batch")
+    with recorded_kernel_calls() as frame_calls:
+        depth.env.render_composite(depth.gt)
     sync()
-    emit({"phase": "bench_problem", "poses": N_POSES,
-          "seconds": time.perf_counter() - t0,
-          "seg_count": bp.env._observed.seg_count.tolist()})
-    results = check_kernels(bp)
-    # 4. The slice on the card, and its first N_CPU poses on the CPU twins.
-    check_slice(bp)
-    # 5. The served path; the counts cover exactly the three requests.
-    launches, twins = check_served_path(bp, dev)
-    require(all(launches.get(n, 0) > 0 for n in KERNELS),
-            f"kernel launches during the requests: {launches}")
-    require(sum(twins.values()) == 0, f"twins ran on the card: {twins}")
-    require("jax" not in sys.modules, "jax was imported")
+    kernel_phase("raster_direct", frame_calls["raster_direct"],
+                 "observation 640x480 stride 1")
+    # Every kernel of a colour batch is held against its twin there too; the
+    # {"kernels"} line reports the raster and ICP from the depth batch.
+    color_roi = problem(dev, use_color=True)
+    results["cost_fused_color_tri"] = check_kernels(
+        color_roi, ("raster_direct", "icp_fused", "cost_fused_color_tri"),
+        "colour ROI batch")["cost_fused_color_tri"]
+    color_full = problem(dev, use_color=True, roi_size=0)
+    results["cost_fused_color"] = check_kernels(
+        color_full, ("raster_direct", "icp_fused", "cost_fused_color"),
+        "colour full-frame batch")["cost_fused_color"]
+
+    # 4. The slices on the card, and their first N_CPU poses on the CPU.
+    check_slice(depth, "depth ROI")
+    check_slice(color_roi, "colour ROI")
+    check_slice(color_full, "colour full frame")
+
+    # 5. The served paths; the counts cover exactly each path's requests.
+    launches = check_served_path(depth, dev, "depth ROI", 3)
+    require(all(launches.get(n, 0) > 0 for n in DEPTH),
+            f"depth launches during the requests: {launches}")
+    color_launches = check_served_path(color_roi, dev, "colour ROI", 3)
+    require(color_launches.get("cost_fused_color_tri", 0) > 0
+            and color_launches.get("cost_fused", 0) == 0,
+            f"colour ROI launches during the requests: {color_launches}")
+    launches["cost_fused_color_tri"] = color_launches["cost_fused_color_tri"]
+    full_launches = check_served_path(color_full, dev, "colour full frame", 1)
+    require(full_launches.get("cost_fused_color", 0) > 0,
+            f"colour full-frame launches: {full_launches}")
+    launches["cost_fused_color"] = full_launches["cost_fused_color"]
+    require(not any(m.split(".")[0] in ("jax", "perception_tpu", "benchmarks")
+                    for m in sys.modules),
+            "jax or the JAX package was imported")
 
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name],
+        {"name": name, "route": "cuda", "source": k.source,
+         "replaces": k.replaces, "launches": launches[name],
          "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
-        for name, (_, _, src, tpu) in KERNELS.items()]}), flush=True)
+         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+         "bound_ms": results[name]["bound_ms"],
+         "bound_by": results[name]["bound_by"],
+         "library_ms": results[name]["library_ms"]}
+        for name, k in KERNELS.items()]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,10 @@
 """Carry state from the JAX package into the port.
 
-The JAX package's host types are plain numpy (ModelBank) or hold arrays that
-`np.asarray` reads (a JAX ObservedScene), so nothing here imports jax: the
-functions turn them into the port's tensors and dataclasses, and the tests
-use them to feed both packages identical inputs.
+The JAX package's host types are plain dataclasses of numpy arrays (models,
+banks, configurations) or hold arrays that `np.asarray` reads (a JAX
+ObservedScene, the env's Lab bank). The functions here read their fields and
+build the port's own types and tensors, importing nothing of the JAX
+package; the tests use them to feed both packages identical inputs.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from perception_tpu.core.mesh import ModelBank
+from perception_tpu_torch.core.mesh import MeshModel, ModelBank
 from perception_tpu_torch.pipeline.scorer import ObservedScene, ScorerConfig
 
 
@@ -21,6 +22,28 @@ def tensor(a, device: str | torch.device = "cpu",
            dtype: torch.dtype | None = None) -> torch.Tensor:
     """Any array (numpy, JAX, list) -> a torch tensor on `device`."""
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def dataclass_from_jax(obj, cls, **overrides):
+    """The port's dataclass `cls` with the same-named fields of `obj` (a
+    JAX PerchConfig, EnvConfig, CameraIntrinsics, ...)."""
+    fields = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+    fields.update(overrides)
+    return cls(**fields)
+
+
+def models_from_jax(models) -> list[MeshModel]:
+    """JAX MeshModels -> the port's, field by field."""
+    return [dataclass_from_jax(m, MeshModel) for m in models]
+
+
+def bank_from_jax(bank) -> ModelBank:
+    """A JAX ModelBank -> the port's (the same arrays)."""
+    return ModelBank(models=models_from_jax(bank.models),
+                     tri_verts=np.asarray(bank.tri_verts),
+                     tri_colors=np.asarray(bank.tri_colors),
+                     tri_valid=np.asarray(bank.tri_valid),
+                     backface_cull=np.asarray(bank.backface_cull))
 
 
 def bank_tensors(bank: ModelBank, device: str | torch.device = "cpu"
@@ -36,9 +59,11 @@ def bank_tensors(bank: ModelBank, device: str | torch.device = "cpu"
 
 def scene_from_jax(scene, device: str | torch.device = "cpu") -> ObservedScene:
     """A JAX ObservedScene -> the port's ObservedScene (the fields the port's
-    scorer reads)."""
+    scorer reads, the segment colours and their Lab included)."""
     return ObservedScene(
         seg_xyz=tensor(scene.seg_xyz, device, torch.float32),
+        seg_rgb=tensor(scene.seg_rgb, device, torch.float32),
+        seg_lab=tensor(scene.seg_lab, device, torch.float32),
         seg_valid=tensor(scene.seg_valid, device, torch.bool),
         seg_normals=tensor(scene.seg_normals, device, torch.float32),
         source_depth=tensor(scene.source_depth, device, torch.int32),
@@ -48,7 +73,4 @@ def scene_from_jax(scene, device: str | torch.device = "cpu") -> ObservedScene:
 def scorer_config_from_jax(cfg) -> ScorerConfig:
     """A JAX ScorerConfig -> the port's, field by field. The JAX kernel
     backend (e.g. "pallas_direct_interpret") maps to the port's only one."""
-    fields = {f.name: getattr(cfg, f.name)
-              for f in dataclasses.fields(ScorerConfig)}
-    fields["backend"] = "auto"
-    return ScorerConfig(**fields)
+    return dataclass_from_jax(cfg, ScorerConfig, backend="auto")

@@ -5,7 +5,8 @@ same seed: four blob models (the bank padded to t_cap), three ground-truth
 objects rendered at 640x480 as the observation, and n_poses candidates that
 perturb the ground truth by 2 cm / 0.15 rad. Settings come as arguments (the
 JAX version reads BENCH_* / PT_* environment variables; their defaults are
-the values used here).
+the values used here). `convex_blob` and `bumpy_blob` are this module's own
+copies of the JAX benchmark's model generators.
 """
 
 from __future__ import annotations
@@ -15,11 +16,22 @@ import dataclasses
 import numpy as np
 import torch
 
-from perception_tpu.core.config import CameraIntrinsics, EnvConfig, PerchConfig
-from perception_tpu.core.mesh import mesh_model_from_arrays
-from perception_tpu.core.pose import ContPose, euler_xyz_to_matrix, matrix_to_quat
-from perception_tpu.core.state import ObjectState
-from perception_tpu_torch.core.mesh import bank_from_models
+from perception_tpu_torch.core.config import (
+    CameraIntrinsics,
+    EnvConfig,
+    PerchConfig,
+)
+from perception_tpu_torch.core.mesh import (
+    ModelBank,
+    decimate,
+    mesh_model_from_arrays,
+)
+from perception_tpu_torch.core.pose import (
+    ContPose,
+    euler_xyz_to_matrix,
+    matrix_to_quat,
+)
+from perception_tpu_torch.core.state import ObjectState
 from perception_tpu_torch.pipeline.env import PerceptionEnv
 from perception_tpu_torch.pipeline.scorer import (
     PoseScores,
@@ -46,17 +58,65 @@ class BenchProblem:
             verts, colors, valid, poses[sl], ids[sl], labels[sl], totals[sl],
             proj, scene, self.cfg, bank_backface=env._render_bank[3],
             bank_icp_samples=env._bank_icp_samples,
-            bank_icp_normals=env._bank_icp_normals)
+            bank_icp_normals=env._bank_icp_normals,
+            bank_tri_lab=env._render_bank_lab)
+
+
+def convex_blob(rng, radius=0.06, n_pts=600):
+    """Convex hull of n_pts jittered points on a sphere."""
+    from scipy.spatial import ConvexHull
+
+    pts = rng.normal(size=(n_pts, 3))
+    pts = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+    pts *= radius * rng.uniform(0.7, 1.3, (n_pts, 1))
+    return pts, ConvexHull(pts).simplices
+
+
+def bumpy_blob(rng, radius=0.06, target=1024):
+    """Non-convex ~target-triangle model: an icosphere (5120 faces) with
+    smooth radial bumps, decimated to the cap."""
+    t = (1 + 5 ** 0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+                  [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], float)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+                  [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+                  [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+                  [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]])
+    for _ in range(4):                       # 20 -> 5120 faces
+        mids, verts, out = {}, list(v), []
+
+        def mid(a, b):
+            k = (min(a, b), max(a, b))
+            if k not in mids:
+                mids[k] = len(verts)
+                verts.append((verts[a] + verts[b]) / 2)
+            return mids[k]
+
+        for (a, b, c) in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            out += [[a, ab, ca], [ab, b, bc], [ca, bc, c], [ab, bc, ca]]
+        v, f = np.asarray(verts, float), np.asarray(out)
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    # Smooth low-order radial field: non-convex lobes, still star-shaped.
+    freq = rng.uniform(1.5, 3.5, (3, 3))
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    r = 1.0 + 0.22 * np.sum(
+        [np.sin(v @ freq[i] + phase[i]) for i in range(3)], axis=0) / 3
+    v = v * (radius * r[:, None])
+    dv, df, _ = decimate(v, f, None, target)
+    return dv, df
 
 
 def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
                         width: int = 640, height: int = 480, stride: int = 8,
                         seed: int = 0, model_kind: str = "blob",
-                        device: str | torch.device = "cpu") -> BenchProblem:
+                        use_color: bool = False, roi_size: int = 32,
+                        device: str | torch.device = "cuda") -> BenchProblem:
     """model_kind: "blob" (convex hulls) or "bumpy1024" (~t_cap-triangle
-    non-convex models), as BENCH_MODELS selects for the JAX version."""
-    from benchmarks.bench_scene import bumpy_blob, convex_blob
-
+    non-convex models), as BENCH_MODELS selects for the JAX version;
+    use_color: the CIEDE2000-gated cost (PT_USE_COLOR); roi_size: the
+    strided ROI side, 0 for the full frame."""
     rng = np.random.default_rng(seed)
     cam = CameraIntrinsics(fx=1066.778, fy=1067.487, cx=312.9869,
                            cy=241.3109, width=width, height=height)
@@ -71,13 +131,15 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
         colors = rng.uniform(40, 220, (len(v), 3))
         models.append(mesh_model_from_arrays(
             f"blob{i}", v, f, colors=colors, use_external_pose_list=True))
-    bank = bank_from_models(models, t_cap=t_cap)
+    bank = ModelBank.from_models(models, t_cap=t_cap)
     perch = PerchConfig(gpu_stride=stride, gpu_batch_size=n_poses,
                         sensor_resolution=0.01,
-                        min_neighbor_points_for_valid_pose=8)
+                        min_neighbor_points_for_valid_pose=8,
+                        use_color_cost=use_color)
     env_cfg = EnvConfig(width=width, height=height, max_points_per_pose=1024,
                         max_observed_points=8192, max_points_per_label=1024,
-                        max_labels=4, roi_size=32, kernel_backend="auto",
+                        max_labels=4, roi_size=roi_size,
+                        kernel_backend="auto",
                         icp_mode="auto")
     env = PerceptionEnv(bank, cam, perch, env_cfg, device=device)
 

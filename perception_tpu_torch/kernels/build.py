@@ -1,11 +1,12 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The three kernels of the scoring path live in `perception_tpu_torch/csrc/`
-as CUDA C++ with a plain C interface. On first use they are compiled by
-`nvcc` for `sm_90a` into one shared library under `build/perception_tpu_torch/`
-(next to the package), named by a hash of the sources and flags, and loaded
-with ctypes. Nothing here runs at import time: the CPU tests import every
-module of the package on machines without `nvcc`.
+The kernels of the scoring path live in `perception_tpu_torch/csrc/` as
+CUDA C++ with a plain C interface. On first use they are compiled by
+`nvcc` for `sm_90a` (one `nvcc` per source, all in parallel) and linked
+into one shared library under `build/perception_tpu_torch/` (next to the
+package), named by a hash of the sources and flags, and loaded with ctypes.
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without `nvcc`.
 
 Every wrapper counts what it ran: `LAUNCHES[name]` when it launched its kernel
 on a CUDA tensor, `TWIN_CALLS[name]` when a CPU tensor sent it to the plain
@@ -26,14 +27,15 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("raster_direct.cu", "icp_fused.cu", "cost_fused.cu")
+SOURCES = ("raster_direct.cu", "icp_fused.cu", "cost_fused.cu",
+           "cost_fused_color.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "perception_tpu_torch"
 # --fmad=false: no contraction of a*b+c into FMAs, so each kernel rounds
 # exactly where its PyTorch twin does (the raster keys and the ICP
 # association compare bit-for-bit with the twins on the card).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Counter = Counter()
 TWIN_CALLS: Counter = Counter()
@@ -48,6 +50,9 @@ _SIGNATURES = {
     "pt_icp_fused": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _F, _F, _F, _I,
                      _P, _P),
     "pt_cost_fused": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
+    "pt_cost_fused_color": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P),
+    "pt_cost_fused_color_tri": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _F, _F, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -97,14 +102,31 @@ def library() -> ctypes.CDLL:
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(CSRC / s) for s in SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    + build_log)
+            nvcc = find_nvcc()
+            objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
+            procs = [(cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+                for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o",
+                             str(o)] for s, o in zip(SOURCES, objs))]
+            logs, failed = [], []
+            for cmd, proc in procs:
+                logs.append(proc.communicate()[0])
+                if proc.returncode != 0:
+                    failed.append(" ".join(cmd))
+            link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                    *map(str, objs)]
+            if not failed:
+                proc = subprocess.run(link, capture_output=True, text=True)
+                logs.append(proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    failed.append(" ".join(link))
+            build_log = "".join(logs)
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if failed:
+                raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n"
+                                   + build_log)
             (BUILD_DIR / "build.log").write_text(build_log)
             os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))

@@ -1,9 +1,10 @@
 """Explained / unexplained point costs.
 
-Counterpart of the depth-only fused path of `perception_tpu/ops/cost.py`:
-the fused kernel's three counts per pose become the percentage costs with
-the -1 sentinel for poses with no rendered points. The colour-gated cost
-types and the composed (1-NN + scatter) path are not ported yet.
+Counterpart of the fused path of `perception_tpu/ops/cost.py`: the fused
+kernels' three counts per pose become the percentage costs with the -1
+sentinel for poses with no rendered points. Depth only (cost types 0 / 2)
+or with the CIEDE2000 colour gate (types 1 / 3). The composed (1-NN +
+scatter) path is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +14,10 @@ import dataclasses
 import torch
 
 from perception_tpu_torch.ops.cost_fused import nn_cost_fused
+from perception_tpu_torch.ops.cost_fused_color import (
+    nn_cost_fused_color,
+    nn_cost_fused_color_tri,
+)
 
 COST_TYPE_3DOF_DEPTH = 0
 COST_TYPE_3DOF_RGBD = 1
@@ -54,16 +59,34 @@ def normalize_costs(raw_rendered, pose_point_num, observed_explained,
 
 def compute_costs_fused(
     cloud_xyz, cloud_valid, pose_occluded, tgt_xyz, tgt_valid,
-    observed_total, *, sensor_resolution: float, use_color: bool = False,
-    cloud_explain_only=None,
+    observed_total, *, sensor_resolution: float, cloud_lab=None,
+    tgt_lab=None, color_distance_threshold: float = 15.0,
+    use_color: bool = False, cloud_tri_id=None, model_ids=None,
+    bank_lab=None, cloud_explain_only=None,
 ) -> CostOutput:
-    """Depth-only cost through the fused NN + count kernel."""
-    if use_color:
+    """Cost through a fused NN + count kernel: depth only by default; with
+    use_color the CIEDE2000 gate, against tgt_lab, of the rendered Lab from
+    cloud_lab or, given cloud_tri_id / model_ids / bank_lab [M, T, 3], of
+    each point's face colour (ROI clouds: point index == pixel index)."""
+    if use_color and (tgt_lab is None or (cloud_lab is None
+                                          and cloud_tri_id is None)):
         raise NotImplementedError(
-            "the colour-gated fused cost (cost types 1 / 3) is not ported yet")
-    point_num, unexplained, explained = nn_cost_fused(
-        cloud_xyz, cloud_valid, tgt_xyz, tgt_valid, sensor_resolution,
-        cloud_explain_only=cloud_explain_only)
+            "the colour cost without Lab inputs (the JAX package's composed "
+            "RGB path) is not ported to PyTorch yet")
+    if use_color and cloud_tri_id is not None:
+        point_num, unexplained, explained = nn_cost_fused_color_tri(
+            cloud_xyz, cloud_valid, cloud_tri_id, model_ids, bank_lab,
+            tgt_xyz, tgt_valid, tgt_lab, sensor_resolution,
+            color_distance_threshold, cloud_explain_only=cloud_explain_only)
+    elif use_color:
+        point_num, unexplained, explained = nn_cost_fused_color(
+            cloud_xyz, cloud_valid, cloud_lab, tgt_xyz, tgt_valid, tgt_lab,
+            sensor_resolution, color_distance_threshold,
+            cloud_explain_only=cloud_explain_only)
+    else:
+        point_num, unexplained, explained = nn_cost_fused(
+            cloud_xyz, cloud_valid, tgt_xyz, tgt_valid, sensor_resolution,
+            cloud_explain_only=cloud_explain_only)
     occluded = pose_occluded.to(torch.bool)
     point_num = torch.where(occluded, 0.0, point_num)
     unexplained = torch.where(occluded, 0.0, unexplained)

@@ -81,10 +81,11 @@ def launch_kernel(cloud: torch.Tensor, cadd: torch.Tensor, tgt4: torch.Tensor,
     return out[:, 0], out[:, 1], out[:, 2]
 
 
-def nn_cost_fused_twin(cloud: torch.Tensor, cadd: torch.Tensor,
-                       tgt4: torch.Tensor, *, max_dist_sq: float
-                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel, vectorised over poses."""
+def nearest(cloud: torch.Tensor, tgt4: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per cloud point: the minimum squared distance to the targets
+    (summed in the kernels' order) and the lowest index attaining it (S when
+    none does: NaN rows)."""
     n, p, _ = cloud.shape
     s = tgt4.shape[1]
     dmin = torch.empty((n, p), dtype=torch.float32, device=cloud.device)
@@ -100,8 +101,17 @@ def nn_cost_fused_twin(cloud: torch.Tensor, cadd: torch.Tensor,
         d = dx * dx + dy * dy + dz * dz + t[..., 3]      # [nb, P, S]
         dm = d.amin(dim=2)
         dmin[i:i + nb] = dm
-        # Lowest index attaining the minimum (s when none does: NaN rows).
         win[i:i + nb] = torch.where(d <= dm[..., None], sidx, s).amin(dim=2)
+    return dmin, win
+
+
+def nn_cost_fused_twin(cloud: torch.Tensor, cadd: torch.Tensor,
+                       tgt4: torch.Tensor, *, max_dist_sq: float
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel, vectorised over poses."""
+    n = cloud.shape[0]
+    s = tgt4.shape[1]
+    dmin, win = nearest(cloud, tgt4)
     real = cadd == 0.0
     close = (dmin <= max_dist_sq) & (cadd <= 0.0)
     point_num = real.sum(dim=1).to(torch.float32)

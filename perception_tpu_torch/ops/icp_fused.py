@@ -207,9 +207,11 @@ def _cholesky_solve(h, g):
 def icp_fused_twin(src: torch.Tensor, sadd: torch.Tensor, tgt: torch.Tensor, *,
                    max_iterations: int, max_corr_sq: float, damping: float,
                    nn_every: int, rot_eps_sq: float, trn_eps_sq: float,
-                   stagnation_streak: float, idx_mask: int) -> torch.Tensor:
+                   stagnation_streak: float, idx_mask: int,
+                   return_iterations: bool = False):
     """Plain PyTorch version of the kernel, vectorised over poses; done poses
-    freeze, so each pose's result is that of a solo refinement."""
+    freeze, so each pose's result is that of a solo refinement. With
+    return_iterations, also the Gauss-Newton iterations each pose ran [N]."""
     n = src.shape[0]
     dev = src.device
     sx, sy, sz = src[..., 0], src[..., 1], src[..., 2]
@@ -225,6 +227,7 @@ def icp_fused_twin(src: torch.Tensor, sadd: torch.Tensor, tgt: torch.Tensor, *,
     best_rmse = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
     streak = zero
     done = zero
+    iters = zero
     assoc = None
     for k in range(max_iterations):
         r00, r01, r02, r10, r11, r12, r20, r21, r22, t0, t1, t2 = (
@@ -253,6 +256,7 @@ def icp_fused_twin(src: torch.Tensor, sadd: torch.Tensor, tgt: torch.Tensor, *,
 
         ok = count >= 6.0
         active = done < 0.5
+        iters = iters + active.to(torch.float32)
         rmse = sqrt(res2 / torch.clamp(count, min=1.0))
         improved = ok & (rmse < best_rmse) & active
         new_best_rmse = torch.where(improved, rmse, best_rmse)
@@ -311,4 +315,4 @@ def icp_fused_twin(src: torch.Tensor, sadd: torch.Tensor, tgt: torch.Tensor, *,
             out[:, i, j] = best[3 * i + j]
         out[:, i, 3] = best[9 + i]
     out[:, 3, 3] = 1.0
-    return out
+    return (out, iters) if return_iterations else out

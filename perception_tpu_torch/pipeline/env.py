@@ -1,11 +1,14 @@
 """Recognition environment: observed-input processing and candidate scoring.
 
 Counterpart of `perception_tpu/pipeline/env.py` for the greedy 6-DoF path:
-`set_input` builds the observed scene (label-partitioned cloud, segment
-normals, strided source images) on the env's device and the world-frame
-KD-trees for validity pruning on the host; `score_object_states` runs
-`score_pose_batch` in `gpu_batch_size` chunks; `compute_greedy_poses` takes
-the per-(model, segment) argmin with the |target - source| < 30 filter.
+`set_input` builds the observed scene (label-partitioned cloud and its Lab
+colours, segment normals, strided source images) on the env's device and the
+world-frame KD-trees for validity pruning on the host; `score_object_states`
+runs `score_pose_batch` in `gpu_batch_size` chunks, with the CIEDE2000 colour
+gate (cost type 3) when `PerchConfig.use_color_cost` is set;
+`compute_greedy_poses` takes the per-(model, segment) argmin with the
+|target - source| < 30 filter. The env runs on the card unless given
+`device="cpu"`.
 
 Not ported yet (they raise): 3-DoF input and successors, `fine_stride`,
 `pose_refinement_rounds`, kernel backends other than "auto", and the
@@ -22,13 +25,16 @@ import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
-from perception_tpu.core.config import CameraIntrinsics, EnvConfig, PerchConfig
-from perception_tpu.core.mesh import ModelBank
-from perception_tpu.core.pose import CAM_TO_BODY, ContPose
-from perception_tpu.core.state import GraphState, ObjectState
-from perception_tpu.utils.stats import EnvStats
-from perception_tpu_torch.core.mesh import decimated_bank
-from perception_tpu_torch.ops.cost import COST_TYPE_6DOF
+from perception_tpu_torch.core.config import (
+    CameraIntrinsics,
+    EnvConfig,
+    PerchConfig,
+)
+from perception_tpu_torch.core.mesh import ModelBank
+from perception_tpu_torch.core.pose import CAM_TO_BODY, ContPose
+from perception_tpu_torch.core.state import GraphState, ObjectState
+from perception_tpu_torch.ops.color import rgb_to_lab
+from perception_tpu_torch.ops.cost import COST_TYPE_6DOF, COST_TYPE_6DOF_RGB
 from perception_tpu_torch.ops.icp import cloud_normals
 from perception_tpu_torch.ops.pointcloud import observed_cloud_from_depth
 from perception_tpu_torch.ops.rasterizer import render_pose_batch
@@ -37,6 +43,7 @@ from perception_tpu_torch.pipeline.scorer import (
     ScorerConfig,
     score_pose_batch,
 )
+from perception_tpu_torch.utils.stats import EnvStats
 
 
 @dataclasses.dataclass
@@ -73,7 +80,7 @@ class PerceptionEnv:
     def __init__(self, bank: ModelBank, camera: CameraIntrinsics,
                  perch: PerchConfig | None = None,
                  env: EnvConfig | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.bank = bank
         self.camera = camera
         self.perch = perch or PerchConfig()
@@ -87,6 +94,9 @@ class PerceptionEnv:
         if self.perch.vis_expanded_states:
             raise _unported("vis_expanded_states (debug image dumps)")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the env runs on the card "
+                               "unless given device='cpu'")
         self.stats = EnvStats()
         self._input: RecognitionInput | None = None
         self._scene: ObservedScene | None = None
@@ -98,20 +108,19 @@ class PerceptionEnv:
         self._bank_tri_verts = dev(bank.tri_verts, torch.float32)
         self._bank_tri_colors = dev(bank.tri_colors, torch.float32)
         self._bank_tri_valid = dev(bank.tri_valid, torch.bool)
-        self._bank_backface = dev(bank.backface_cull, torch.bool)
         samp, snrm = bank.surface_samples(self.env.icp_model_samples)
         self._bank_icp_samples = dev(samp, torch.float32)
         self._bank_icp_normals = dev(snrm, torch.float32)
         lod = self.env.render_lod
-        if lod and lod < bank.tri_valid.shape[1]:
-            rb = decimated_bank(bank, lod)
-            self._render_bank = (dev(rb.tri_verts, torch.float32),
-                                 dev(rb.tri_colors, torch.float32),
-                                 dev(rb.tri_valid, torch.bool),
-                                 dev(rb.backface_cull, torch.bool))
-        else:
-            self._render_bank = (self._bank_tri_verts, self._bank_tri_colors,
-                                 self._bank_tri_valid, self._bank_backface)
+        rb = (bank.decimated(lod) if lod and lod < bank.tri_valid.shape[1]
+              else bank)
+        self._render_bank = (dev(rb.tri_verts, torch.float32),
+                             dev(rb.tri_colors, torch.float32),
+                             dev(rb.tri_valid, torch.bool),
+                             dev(rb.backface_cull, torch.bool))
+        # The render bank's face colours in CIELAB, converted once for the
+        # colour-gated cost.
+        self._render_bank_lab = rgb_to_lab(rb.tri_colors).to(self.device)
 
     def _tensor(self, a, dtype: torch.dtype | None = None) -> torch.Tensor:
         """A host array as a tensor on the env's device."""
@@ -150,7 +159,8 @@ class PerceptionEnv:
         division = float(rin.depth_factor) / env.gpu_depth_factor
         src = rin.depth_image[::stride, ::stride].astype(np.float64) / division
         scene = ObservedScene(
-            seg_xyz=observed.seg_xyz,
+            seg_xyz=observed.seg_xyz, seg_rgb=observed.seg_rgb,
+            seg_lab=rgb_to_lab(observed.seg_rgb),
             seg_valid=observed.seg_valid, seg_normals=seg_normals,
             source_depth=dev(src.astype(np.int32), torch.int32),
             source_label=dev(rin.label_mask[::stride, ::stride], torch.int32))
@@ -253,8 +263,6 @@ class PerceptionEnv:
 
     def _scorer_config(self, do_icp: bool | None = None) -> ScorerConfig:
         cam, perch, env = self.camera, self.perch, self.env
-        if perch.use_color_cost:
-            raise _unported("use_color_cost (CIEDE2000 gate)")
         if do_icp is None:
             do_icp = perch.icp_type == 3
         stride = int(perch.gpu_stride)
@@ -267,7 +275,8 @@ class PerceptionEnv:
             width=cam.width, height=cam.height, stride=stride,
             fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
             max_points_per_pose=env.max_points_per_pose,
-            cost_type=COST_TYPE_6DOF,
+            cost_type=(COST_TYPE_6DOF_RGB if perch.use_color_cost
+                       else COST_TYPE_6DOF),
             sensor_resolution=perch.sensor_resolution,
             color_distance_threshold=perch.color_distance_threshold,
             occlusion_threshold=perch.gpu_occlusion_threshold,
@@ -327,7 +336,8 @@ class PerceptionEnv:
                 dev(seg_count[labels], torch.float32), self._proj,
                 self._scene, cfg, bank_backface=rb_backface,
                 bank_icp_samples=self._bank_icp_samples,
-                bank_icp_normals=self._bank_icp_normals)
+                bank_icp_normals=self._bank_icp_normals,
+                bank_tri_lab=self._render_bank_lab)
             total = scores.total_cost.cpu().numpy()
             rendered = scores.rendered_cost.cpu().numpy()
             observed = scores.observed_cost.cpu().numpy()

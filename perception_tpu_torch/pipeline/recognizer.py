@@ -15,16 +15,20 @@ import time
 import numpy as np
 import torch
 
-from perception_tpu.core.config import CameraIntrinsics, EnvConfig, PerchConfig
-from perception_tpu.core.mesh import MeshModel, ModelBank
-from perception_tpu.core.pose import ContPose
-from perception_tpu.core.state import GraphState, ObjectState
-from perception_tpu.io.poses_file import (
+from perception_tpu_torch.core.config import (
+    CameraIntrinsics,
+    EnvConfig,
+    PerchConfig,
+)
+from perception_tpu_torch.core.mesh import MeshModel, ModelBank
+from perception_tpu_torch.core.pose import ContPose
+from perception_tpu_torch.core.state import GraphState, ObjectState
+from perception_tpu_torch.io.model_cache import load_model_cached
+from perception_tpu_torch.io.poses_file import (
     write_cost_dump,
     write_output_poses,
     write_output_stats,
 )
-from perception_tpu_torch.core.mesh import bank_from_models
 from perception_tpu_torch.pipeline.env import PerceptionEnv, RecognitionInput
 
 
@@ -61,30 +65,31 @@ class ObjectRecognizer:
         mesh_scaling_factor: float = 0.001,
         use_external_pose_list: bool = True,
         target_triangles: int = 1024,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
+        model_cache_dir: str | None = None,
     ):
-        from perception_tpu.io.model_cache import load_model_cached
-
         models = [load_model_cached(
-            spec.path, name=spec.name, mesh_in_mm=mesh_in_mm,
+            spec.path, cache_dir=model_cache_dir, name=spec.name,
+            mesh_in_mm=mesh_in_mm,
             scaling_factor=mesh_scaling_factor, flipped=spec.flipped,
             use_external_pose_list=use_external_pose_list,
             target_triangles=target_triangles,
             symmetric=spec.symmetric, symmetry_mode=spec.symmetry_mode)
             for spec in model_specs]
-        self._init(bank_from_models(models), camera, perch, env_cfg, device,
-                   model_specs)
+        self._init(ModelBank.from_models(models), camera, perch, env_cfg,
+                   device, model_specs)
 
     @classmethod
     def from_models(cls, models: list[MeshModel], camera: CameraIntrinsics,
                     perch: PerchConfig | None = None,
                     env_cfg: EnvConfig | None = None,
                     t_cap: int | None = None,
-                    device: str | torch.device = "cpu") -> "ObjectRecognizer":
+                    device: str | torch.device = "cuda"
+                    ) -> "ObjectRecognizer":
         """A recogniser over in-memory models (no mesh files)."""
         self = cls.__new__(cls)
         specs = [ModelSpec(name=m.name, path="") for m in models]
-        self._init(bank_from_models(models, t_cap=t_cap), camera, perch,
+        self._init(ModelBank.from_models(models, t_cap=t_cap), camera, perch,
                    env_cfg, device, specs)
         return self
 
@@ -124,10 +129,7 @@ class ObjectRecognizer:
         candidates = env.generate_successors_6dof(pose_lists)
         state, chosen = env.compute_greedy_poses(candidates)
         result = self._result_from_state(state)
-        if env.device.type == "cuda":
-            env.stats.peak_device_mem_mb = max(
-                env.stats.peak_device_mem_mb,
-                torch.cuda.max_memory_allocated(env.device) / 1e6)
+        env.stats.update_peak_memory(env.device)
         if output_dir is not None:
             self._write_outputs(output_dir, result, chosen)
         return result

@@ -8,10 +8,15 @@ configuration:
       -> label-shared "near" target crop + pack_targets
       -> fused point-to-plane ICP on the downsampled cloud
       -> the cloud moved by the ICP delta, plus explain-only surface samples
-      -> fused depth-only cost -> total cost.
+      -> fused cost, depth only or colour-gated (CIEDE2000) -> total cost.
 
 The same `ScorerConfig` (field names and defaults as the JAX one) selects the
 path; every branch that is not ported raises NotImplementedError.
+
+The colour-gated cost (types 1 / 3, with `bank_tri_lab`) compares Lab
+colours: on the ROI path the cost kernel looks up each point's rendered Lab
+from its winning face id; on the full-frame path the raster draws the Lab
+face colours, so the cloud's colour channel holds Lab.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ class ObservedScene:
     """Observed-scene tensors the scorer reads, built once per frame."""
 
     seg_xyz: torch.Tensor        # [L, S, 3] label-partitioned observed cloud
+    seg_rgb: torch.Tensor        # [L, S, 3] float32 0..255
+    seg_lab: torch.Tensor        # [L, S, 3] CIELAB of seg_rgb (ops.color)
     seg_valid: torch.Tensor      # [L, S] bool
     seg_normals: torch.Tensor    # [L, S, 3]
     source_depth: torch.Tensor   # [h_s, w_s] int32 render units
@@ -111,8 +118,8 @@ def _unported(what: str) -> NotImplementedError:
 def _check_config(cfg: ScorerConfig) -> None:
     if cfg.backend != "auto":
         raise _unported(f"backend={cfg.backend!r} (the port has one backend)")
-    if cfg.cost_type not in (0, 2):
-        raise _unported(f"cost_type={cfg.cost_type} (colour cost)")
+    if cfg.cost_type not in (0, 1, 2, 3):
+        raise ValueError(f"unknown cost_type {cfg.cost_type}")
     if cfg.use_tree_occlusion:
         raise _unported("use_tree_occlusion")
     if cfg.do_icp:
@@ -162,6 +169,15 @@ def _compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             + a[:, :, 2:3] * b[:, 2:3] + a[:, :, 3:4] * b[:, 3:4])
 
 
+def _pad_points(x: torch.Tensor, p: int, fill) -> torch.Tensor:
+    """x [N, K, ...] padded with `fill` to p entries along dim 1."""
+    if x.shape[1] >= p:
+        return x
+    pad = torch.full((x.shape[0], p - x.shape[1], *x.shape[2:]), fill,
+                     dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
 def _icp_targets(scene: ObservedScene, labels: torch.Tensor,
                  cfg: ScorerConfig) -> torch.Tensor:
     """[N, k, 8] packed ICP targets: one "near" crop per segment around its
@@ -197,6 +213,7 @@ def score_pose_batch(
     bank_backface: torch.Tensor | None = None,     # [M] bool
     bank_icp_samples: torch.Tensor | None = None,  # [M, K, 3]
     bank_icp_normals: torch.Tensor | None = None,  # [M, K, 3]
+    bank_tri_lab: torch.Tensor | None = None,      # [M, T, 3] face Lab
 ) -> PoseScores:
     """Render, refine and score one batch of candidate poses; pose i scores
     against observed segment pose_labels[i]."""
@@ -213,8 +230,23 @@ def score_pose_batch(
         observed_total = torch.minimum(
             observed_total, cost_valid.sum(dim=1).to(observed_total.dtype))
 
+    # The fused kernels take any cloud size (the JAX package switches to its
+    # composed cost above 2048 points only for the TPU's VMEM). The colour
+    # gate compares Lab, so it needs the face Lab table.
+    color = cfg.cost_type in (1, 3)
+    if color and bank_tri_lab is None:
+        raise _unported("the colour cost without bank_tri_lab (the composed "
+                        "RGB path)")
+    # ROI clouds keep pixel == point order, so the cost kernel looks the
+    # rendered Lab up by face id; full-frame clouds are compacted, so the
+    # raster draws Lab face colours instead.
+    tri_color = color and cfg.roi_shape is not None
+    render_colors = (bank_tri_lab if color and not tri_color
+                     else bank_tri_colors)
+    cost_lab = scene.seg_lab[:, :sc][labels] if color else None
+
     render, cloud = _render_and_cloud(
-        bank_tri_verts, bank_tri_colors, bank_tri_valid, poses, ids, proj,
+        bank_tri_verts, render_colors, bank_tri_valid, poses, ids, proj,
         scene, labels, cfg, bank_backface)
 
     adjusted = poses
@@ -259,10 +291,21 @@ def score_pose_batch(
                  torch.ones((n_b, k_b), dtype=torch.bool, device=poses.device)],
                 dim=1)
 
+    # The explain-only samples have no face and no rendered colour.
+    p_all = cloud_xyz.shape[1]
+    tri_kw = {}
+    if tri_color:
+        tri_id = render.tri_id.reshape(render.tri_id.shape[0], -1)
+        tri_kw = dict(cloud_tri_id=_pad_points(tri_id, p_all, -1),
+                      model_ids=ids, bank_lab=bank_tri_lab)
+    cloud_lab = (_pad_points(cloud.rgb, p_all, 0.0)
+                 if color and not tri_color else None)
     costs = compute_costs_fused(
         cloud_xyz, cloud_valid, render.pose_occluded, cost_xyz, cost_valid,
         observed_total, sensor_resolution=cfg.sensor_resolution,
-        cloud_explain_only=explain_only)
+        cloud_lab=cloud_lab, tgt_lab=cost_lab,
+        color_distance_threshold=cfg.color_distance_threshold,
+        use_color=color, cloud_explain_only=explain_only, **tri_kw)
 
     invalid = costs.rendered_cost.to(torch.int32) < 0
     total_f = costs.rendered_cost + costs.observed_cost

@@ -10,8 +10,13 @@ Counterpart of `perception_tpu/serve.py` for the greedy mode:
                       "mode": "greedy"}
                   -> {"detections": [{"name", "translation",
                                       "quaternion_xyzw", "transform"}],
-                      "stats": {...}}
+                      "stats": {"scenes_rendered", "time", "gpu_time",
+                                "decode_time"}}
     GET /status      the last /localize response
+
+A `color_image` (0..255 RGB) reaches `set_input`, which builds the observed
+Lab colours that the recogniser's colour-gated cost (`use_color_cost`) reads.
+`decode_time` is the seconds spent turning the JSON lists into arrays.
 
 Modes "tree" and "greedy_icp" and the /overlay.png view answer with an error:
 they are not ported yet (ROADMAP.md, Queue 1).
@@ -20,6 +25,7 @@ they are not ported yet (ROADMAP.md, Queue 1).
 from __future__ import annotations
 
 import json
+import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
 
 import numpy as np
@@ -37,6 +43,7 @@ class LocalizerService:
         if mode != "greedy":
             raise NotImplementedError(
                 f"mode {mode!r} is not ported to PyTorch yet (only 'greedy')")
+        t0 = time.perf_counter()
         depth = np.asarray(payload["depth_image"], np.float64)
         label = (np.asarray(payload["label_mask"], np.int32)
                  if payload.get("label_mask") is not None else None)
@@ -54,6 +61,7 @@ class LocalizerService:
             use_external_pose_list=label is not None)
         pose_lists = {k: np.asarray(v, np.float64)
                       for k, v in (payload.get("pose_lists") or {}).items()}
+        decode_time = time.perf_counter() - t0
         result = self.recognizer.localize_objects_greedy_render(
             rin, pose_lists)
         stats = self.recognizer.env.stats
@@ -72,6 +80,7 @@ class LocalizerService:
                 "scenes_rendered": stats.scenes_rendered,
                 "time": stats.time,
                 "gpu_time": stats.gpu_time,
+                "decode_time": decode_time,
             },
         }
         self.last_response = out

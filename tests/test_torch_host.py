@@ -1,0 +1,334 @@
+"""The port's own host modules against the JAX package's originals, the rule
+that the port imports nothing of the JAX package, and the card as the
+default device.
+
+Copies are held to the originals exactly: configuration fields and
+defaults, poses, model banks built from the same meshes (the same QEM
+decimation, in the port's own copy of the C++ decimator), surface samples
+and the bytes of the pose files.
+"""
+
+import ast
+import dataclasses
+import inspect
+import json
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from benchmarks import bench_scene as jbench
+from perception_tpu.core import config as jconfig
+from perception_tpu.core import mesh as jmesh
+from perception_tpu.core import pose as jpose
+from perception_tpu.core import state as jstate
+from perception_tpu.io import model_cache as jcache
+from perception_tpu.io import poses_file as jposes
+from perception_tpu.utils import stats as jstats
+from perception_tpu_torch import convert
+from perception_tpu_torch.core import config as pconfig
+from perception_tpu_torch.core import mesh as pmesh
+from perception_tpu_torch.core import pose as ppose
+from perception_tpu_torch.core import state as pstate
+from perception_tpu_torch.eval import bench_scene as pbench
+from perception_tpu_torch.io import model_cache as pcache
+from perception_tpu_torch.io import poses_file as pposes
+from perception_tpu_torch.utils import stats as pstats
+
+from tests.test_search_e2e import _write_box_ply
+
+REPO = Path(__file__).resolve().parent.parent
+BANK_ARRAYS = ("tri_verts", "tri_colors", "tri_valid", "backface_cull")
+
+
+def _fields(cls) -> dict:
+    return {f.name: (f.default, f.default_factory)
+            for f in dataclasses.fields(cls)}
+
+
+@pytest.mark.parametrize("name", [
+    "CameraIntrinsics", "PerchConfig", "EnvConfig"])
+def test_config_fields_and_defaults_match_jax(name):
+    assert _fields(getattr(pconfig, name)) == _fields(getattr(jconfig, name))
+
+
+def test_config_behaviour_matches_jax():
+    cam = dict(fx=500.0, fy=510.0, cx=320.0, cy=240.0, width=640, height=480)
+    np.testing.assert_array_equal(
+        pconfig.CameraIntrinsics(**cam).projection(),
+        jconfig.CameraIntrinsics(**cam).projection())
+    raw = {"perch_params": {"sensor_resolution_radius": 0.02,
+                            "visualize_expanded_states": True,
+                            "use_color_cost": True, "unknown": 1}}
+    assert dataclasses.asdict(pconfig.PerchConfig.from_yaml_dict(raw)) == \
+        dataclasses.asdict(jconfig.PerchConfig.from_yaml_dict(raw))
+    env = {"roi_size": 32, "render_lod": 128, "unknown": 3}
+    pe, je = (pconfig.EnvConfig.from_yaml_dict(env),
+              jconfig.EnvConfig.from_yaml_dict(env))
+    assert dataclasses.asdict(pe) == dataclasses.asdict(je)
+
+
+def test_stats_and_state_fields_match_jax():
+    assert _fields(pstats.EnvStats) == _fields(jstats.EnvStats)
+    assert _fields(pstate.ObjectState) == _fields(jstate.ObjectState)
+    assert _fields(pstate.GraphState) == _fields(jstate.GraphState)
+    assert _fields(pmesh.MeshModel) == _fields(jmesh.MeshModel)
+    assert _fields(pmesh.ModelBank) == _fields(jmesh.ModelBank)
+    s = pstats.EnvStats()
+    s.update_peak_memory(torch.device("cpu"))
+    assert s.peak_device_mem_mb == 0.0
+    g = pstate.GraphState().append(pstate.ObjectState(
+        id=1, symmetric=False, pose=ppose.ContPose(x=1.0)))
+    assert g.num_objects == 1
+
+
+def test_poses_round_trip_like_jax():
+    rng = np.random.default_rng(0)
+    np.testing.assert_array_equal(ppose.CAM_TO_BODY, jpose.CAM_TO_BODY)
+    for _ in range(50):
+        e = rng.uniform(-3, 3, 3)
+        rp, rj = ppose.euler_xyz_to_matrix(*e), jpose.euler_xyz_to_matrix(*e)
+        np.testing.assert_array_equal(rp, rj)
+        assert ppose.matrix_to_quat(rp) == jpose.matrix_to_quat(rj)
+        q = ppose.matrix_to_quat(rp)
+        t = rng.normal(size=3)
+        pq, jq = ppose.ContPose.from_quat(*t, *q), jpose.ContPose.from_quat(*t, *q)
+        np.testing.assert_array_equal(pq.transform(), jq.transform())
+        assert pq.quaternion() == jq.quaternion()
+        pm = ppose.ContPose.from_matrix(pq.transform())
+        assert dataclasses.asdict(pm) == dataclasses.asdict(
+            jpose.ContPose.from_matrix(jq.transform()))
+        np.testing.assert_allclose(pm.transform(), pq.transform(), atol=1e-12)
+        pe, je = ppose.ContPose.from_euler(*t, *e), jpose.ContPose.from_euler(*t, *e)
+        np.testing.assert_array_equal(pe.transform(), je.transform())
+        assert pe.quaternion() == je.quaternion()
+
+
+def _bench_models(kind, pm, jm):
+    """The bench scene's first two models made by both packages from the
+    same seed."""
+    rp, rj = np.random.default_rng(0), np.random.default_rng(0)
+    pmods, jmods = [], []
+    for i in range(2):
+        if kind == "bumpy1024":
+            vp, fp = pbench.bumpy_blob(rp, radius=0.05 + 0.015 * i)
+            vj, fj = jbench.bumpy_blob(rj, radius=0.05 + 0.015 * i)
+        else:
+            vp, fp = pbench.convex_blob(rp, radius=0.05 + 0.015 * i)
+            vj, fj = jbench.convex_blob(rj, radius=0.05 + 0.015 * i)
+        np.testing.assert_array_equal(vp, vj)
+        np.testing.assert_array_equal(fp, fj)
+        cp, cj = rp.uniform(40, 220, (len(vp), 3)), rj.uniform(40, 220,
+                                                               (len(vj), 3))
+        pmods.append(pm(f"blob{i}", vp, fp, colors=cp,
+                        use_external_pose_list=True))
+        jmods.append(jm(f"blob{i}", vj, fj, colors=cj,
+                        use_external_pose_list=True))
+    return pmods, jmods
+
+
+@pytest.mark.parametrize("kind", ["bumpy1024", "blob"])
+def test_bank_and_lod_bank_match_jax(kind):
+    """ModelBank.from_models at 1024 triangles and the LOD-256 re-decimation
+    give the JAX package's arrays, and so do the surface samples."""
+    pmods, jmods = _bench_models(kind, pmesh.mesh_model_from_arrays,
+                                 jmesh.mesh_model_from_arrays)
+    pb = pmesh.ModelBank.from_models(pmods, t_cap=1024)
+    jb = jmesh.ModelBank.from_models(jmods, t_cap=1024)
+    for a in BANK_ARRAYS:
+        np.testing.assert_array_equal(getattr(pb, a), getattr(jb, a), a)
+    pl, jl = pb.decimated(256), jb.decimated(256)
+    for a in BANK_ARRAYS:
+        np.testing.assert_array_equal(getattr(pl, a), getattr(jl, a), a)
+    for x, y in zip(pb.surface_samples(256), jb.surface_samples(256)):
+        np.testing.assert_array_equal(x, y)
+    assert pb.index_of("blob1#2") == jb.index_of("blob1#2") == 1
+    cb = convert.bank_from_jax(jb)
+    for a in BANK_ARRAYS:
+        np.testing.assert_array_equal(getattr(cb, a), getattr(pb, a), a)
+    assert [m.name for m in cb.models] == [m.name for m in pb.models]
+
+
+@pytest.mark.parametrize("target", [64, 300])
+def test_decimate_matches_jax(target):
+    """The port's only decimator is QEM; the JAX package's QEM gives the
+    same mesh."""
+    rng = np.random.default_rng(3)
+    v, f = jbench.convex_blob(rng, radius=0.05, n_pts=800)
+    cols = rng.uniform(0, 255, (len(v), 3))
+    out_p = pmesh.decimate(v, f, cols, target)
+    out_j = jmesh.decimate(v, f, cols, target, mode="qem")
+    for a, b in zip(out_p, out_j):
+        np.testing.assert_array_equal(a, b)
+    ok_p, faces_p = pmesh.analyze_winding(v, f)
+    ok_j, faces_j = jmesh.analyze_winding(v, f)
+    assert ok_p == ok_j
+    np.testing.assert_array_equal(faces_p, faces_j)
+
+
+def _write_binary_ply(path, rng):
+    """A binary little-endian PLY blob with vertex colours and an extra
+    per-face property."""
+    v, f = jbench.convex_blob(rng, radius=0.05, n_pts=200)
+    cols = rng.integers(0, 256, (len(v), 3)).astype(np.uint8)
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(v)}\n"
+              "property float x\nproperty float y\nproperty float z\n"
+              "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+              f"element face {len(f)}\nproperty list uchar int vertex_indices\n"
+              "property float quality\nend_header\n")
+    vert = np.zeros(len(v), dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                                   ("r", "u1"), ("g", "u1"), ("b", "u1")])
+    vert["x"], vert["y"], vert["z"] = v.T
+    vert["r"], vert["g"], vert["b"] = cols.T
+    face = np.zeros(len(f), dtype=[("n", "u1"), ("i", "<i4", 3),
+                                   ("q", "<f4")])
+    face["n"], face["i"], face["q"] = 3, f, 0.5
+    with open(path, "wb") as fh:
+        fh.write(header.encode() + vert.tobytes() + face.tobytes())
+
+
+@pytest.mark.parametrize("fmt", ["ascii", "binary"])
+def test_mesh_files_load_like_jax(tmp_path, fmt):
+    """PLY reading (the port's C++ loader against both of the JAX
+    package's readers), load_model with decimation, and the .npz model
+    cache."""
+    path = str(tmp_path / "box.ply")
+    if fmt == "ascii":
+        _write_box_ply(path, 0.12, 0.08, 0.10, (200, 40, 40))
+    else:
+        _write_binary_ply(path, np.random.default_rng(5))
+    for a, b in zip(pmesh.read_mesh(path), jmesh.read_mesh(path)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(pmesh.read_mesh(path), jmesh.read_ply(path)):
+        np.testing.assert_array_equal(a, b)
+    kw = dict(name="box", use_external_pose_list=True, target_triangles=10)
+    pm, jm = pmesh.load_model(path, **kw), jmesh.load_model(path, **kw)
+    for f in dataclasses.fields(pmesh.MeshModel):
+        np.testing.assert_array_equal(getattr(pm, f.name),
+                                      getattr(jm, f.name), f.name)
+    cache = str(tmp_path / "cache")
+    first = pcache.load_model_cached(path, cache_dir=cache, **kw)
+    again = pcache.load_model_cached(path, cache_dir=cache, **kw)
+    ref = jcache.load_model_cached(path, cache_dir=str(tmp_path / "j"), **kw)
+    for m in (first, again):
+        for f in dataclasses.fields(pmesh.MeshModel):
+            np.testing.assert_array_equal(getattr(m, f.name),
+                                          getattr(ref, f.name), f.name)
+
+
+def test_pose_files_have_the_jax_bytes(tmp_path):
+    rng = np.random.default_rng(4)
+    dets_p, dets_j = [], []
+    for i in range(3):
+        t, q = rng.normal(size=3), jpose.matrix_to_quat(
+            jpose.euler_xyz_to_matrix(*rng.uniform(-2, 2, 3)))
+        pre = np.eye(4)
+        pre[:3, 3] = rng.normal(size=3)
+        dets_p.append((f"m{i}", ppose.ContPose.from_quat(*t, *q), pre))
+        dets_j.append((f"m{i}", jpose.ContPose.from_quat(*t, *q), pre))
+    pposes.write_output_poses(str(tmp_path / "p.txt"), dets_p)
+    jposes.write_output_poses(str(tmp_path / "j.txt"), dets_j)
+    assert (tmp_path / "p.txt").read_bytes() == (tmp_path / "j.txt").read_bytes()
+    parsed = pposes.read_output_poses(str(tmp_path / "p.txt"))
+    ref = jposes.read_output_poses(str(tmp_path / "j.txt"))
+    assert [r["name"] for r in parsed] == [r["name"] for r in ref]
+    for a, b in zip(parsed, ref):
+        np.testing.assert_array_equal(a["transform_matrix"],
+                                      b["transform_matrix"])
+    stats = pstats.EnvStats(scenes_rendered=7, time=1.5)
+    pposes.write_output_stats(str(tmp_path / "ps.txt"), stats)
+    jposes.write_output_stats(str(tmp_path / "js.txt"),
+                              jstats.EnvStats(scenes_rendered=7, time=1.5))
+    assert (tmp_path / "ps.txt").read_bytes() == \
+        (tmp_path / "js.txt").read_bytes()
+    rows = rng.normal(size=(5, 7))
+    np.savetxt(tmp_path / "poses.txt", rows)
+    np.testing.assert_array_equal(
+        pposes.read_poses_file(str(tmp_path / "poses.txt")),
+        jposes.read_poses_file(str(tmp_path / "poses.txt")))
+    # cost_dump.json from the same scored candidates.
+    pre = np.eye(4)
+    model = types.SimpleNamespace(preprocessing_transform=pre)
+    env = types.SimpleNamespace(bank=types.SimpleNamespace(models=[model]))
+    scored = [types.SimpleNamespace(
+        state=types.SimpleNamespace(id=0, pose=d[1]), target_cost=3,
+        source_cost=4, cost=7) for d in dets_p]
+    pposes.write_cost_dump(str(tmp_path / "pc.json"), scored, env)
+    jposes.write_cost_dump(str(tmp_path / "jc.json"), scored, env)
+    assert json.loads((tmp_path / "pc.json").read_text()) == \
+        json.loads((tmp_path / "jc.json").read_text())
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """An AST scan of every module of the port and of chip_smoke.py: no
+    import of jax, perception_tpu or benchmarks, at any depth of the
+    file (function-level imports included)."""
+    files = sorted((REPO / "perception_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 25
+    bad = {str(f.relative_to(REPO)): name for f in files
+           for name in _imports(f)
+           if name.split(".")[0] in ("jax", "jaxlib", "perception_tpu",
+                                     "benchmarks")}
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_without_the_jax_package():
+    code = ("import sys\n"
+            "import chip_smoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'perception_tpu', 'benchmarks')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _entry_points():
+    from perception_tpu_torch.pipeline.env import PerceptionEnv
+    from perception_tpu_torch.pipeline.recognizer import ObjectRecognizer
+
+    return {"PerceptionEnv": PerceptionEnv.__init__,
+            "ObjectRecognizer": ObjectRecognizer.__init__,
+            "ObjectRecognizer.from_models": ObjectRecognizer.from_models,
+            "build_bench_problem": pbench.build_bench_problem}
+
+
+@pytest.mark.parametrize("name", ["PerceptionEnv", "ObjectRecognizer",
+                                  "ObjectRecognizer.from_models",
+                                  "build_bench_problem"])
+def test_entry_points_default_to_the_card(name):
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_env_without_a_card_raises():
+    """Asked for the default device on a machine without a card, the env
+    raises instead of running on the CPU."""
+    from perception_tpu_torch.pipeline.env import PerceptionEnv
+
+    pmods, _ = _bench_models("blob", pmesh.mesh_model_from_arrays,
+                             jmesh.mesh_model_from_arrays)
+    bank = pmesh.ModelBank.from_models(pmods)
+    cam = pconfig.CameraIntrinsics(fx=100.0, fy=100.0, cx=32.0, cy=24.0,
+                                   width=64, height=48)
+    if torch.cuda.is_available():
+        assert PerceptionEnv(bank, cam).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PerceptionEnv(bank, cam)
+        assert PerceptionEnv(bank, cam, device="cpu").device.type == "cpu"

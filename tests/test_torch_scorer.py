@@ -15,6 +15,7 @@ within 5 everywhere.
 """
 
 import dataclasses
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -34,18 +35,14 @@ from perception_tpu_torch.pipeline import scorer as pscorer
 from tests.test_pipeline import gt_states, make_env
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_MODULES = (
-    "perception_tpu_torch", "perception_tpu_torch.kernels.build",
-    "perception_tpu_torch.convert", "perception_tpu_torch.core.mesh",
-    "perception_tpu_torch.ops.rasterizer",
-    "perception_tpu_torch.ops.raster_direct",
-    "perception_tpu_torch.ops.pointcloud", "perception_tpu_torch.ops.knn",
-    "perception_tpu_torch.ops.icp", "perception_tpu_torch.ops.icp_fused",
-    "perception_tpu_torch.ops.cost", "perception_tpu_torch.ops.cost_fused",
-    "perception_tpu_torch.pipeline.scorer",
-    "perception_tpu_torch.pipeline.env",
-    "perception_tpu_torch.pipeline.recognizer", "perception_tpu_torch.serve",
-    "perception_tpu_torch.eval.bench_scene")
+
+
+def _port_modules() -> list[str]:
+    import perception_tpu_torch
+
+    return ["perception_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(perception_tpu_torch.__path__,
+                                              "perception_tpu_torch.")]
 
 
 def _assert_slice_close(ref, out):
@@ -58,20 +55,22 @@ def _assert_slice_close(ref, out):
     np.testing.assert_allclose(o_adj[:, :3, 3], r_adj[:, :3, 3], atol=1e-3)
 
 
-def _score_both(bank_arrays, args, cfg, icp_samples, icp_normals):
+def _score_both(bank_arrays, args, cfg, icp_samples, icp_normals,
+                bank_lab=None):
     """Score the same inputs (JAX arrays) with JAX and with the port."""
     verts, colors, valid, backface = bank_arrays
     poses, ids, labels, totals, proj, scene = args
     ref = jscorer.score_pose_batch(
         verts, colors, valid, poses, ids, labels, totals, proj, scene, cfg,
         bank_backface=backface, bank_icp_samples=icp_samples,
-        bank_icp_normals=icp_normals)
+        bank_icp_normals=icp_normals, bank_tri_lab=bank_lab)
     t = convert.tensor
     out = pscorer.score_pose_batch(
         t(verts), t(colors), t(valid), t(poses), t(ids), t(labels),
         t(totals), t(proj), convert.scene_from_jax(scene),
         convert.scorer_config_from_jax(cfg), bank_backface=t(backface),
-        bank_icp_samples=t(icp_samples), bank_icp_normals=t(icp_normals))
+        bank_icp_samples=t(icp_samples), bank_icp_normals=t(icp_normals),
+        bank_tri_lab=None if bank_lab is None else t(bank_lab))
     return ref, out
 
 
@@ -138,7 +137,7 @@ def test_port_bench_problem_matches_jax(monkeypatch):
 
     monkeypatch.setenv("BENCH_MODELS", "blob")
     env, cands, args, _ = build_bench_problem(n_poses=12)
-    bp = port_build(n_poses=12, model_kind="blob")
+    bp = port_build(n_poses=12, model_kind="blob", device="cpu")
     for i in range(8):
         np.testing.assert_array_equal(bp.args[i].numpy(), np.asarray(args[i]),
                                       str(i))
@@ -158,10 +157,14 @@ def test_scorer_config_fields_match_jax():
 
 
 def test_port_never_imports_jax():
+    """Importing every module of the port loads neither jax nor the JAX
+    package nor the JAX benchmarks."""
     code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}:\n"
+            f"for m in {_port_modules()!r}:\n"
             "    importlib.import_module(m)\n"
-            "assert 'jax' not in sys.modules, 'jax imported'\n")
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'perception_tpu', 'benchmarks')]\n"
+            "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -200,8 +203,8 @@ def test_cpu_calls_run_the_twins():
     dict(icp_mode="nn"), dict(icp_mode="projective"), dict(icp_mode="gicp"),
     dict(icp_mode="fused_d2d"), dict(icp_mode="fused_d2d_exact"),
     dict(icp_nn_every=0), dict(icp_source="model"),
-    dict(cost_cloud="render"), dict(icp_render_scale=2), dict(cost_type=3),
-    dict(cost_type=1), dict(use_tree_occlusion=True), dict(backend="xla"),
+    dict(cost_cloud="render"), dict(icp_render_scale=2),
+    dict(use_tree_occlusion=True), dict(backend="xla"),
     dict(icp_crop_share="pose"), dict(icp_crop_mode="spread"),
 ])
 def test_unported_scorer_branches_raise(change):
@@ -221,3 +224,89 @@ def test_unported_kernel_modes_raise():
                dict(exact=True), dict(nn_every=0)):
         with pytest.raises(NotImplementedError):
             icp_fused(src, valid, tgt, **kw)
+
+
+def test_color_score_pose_batch_bench_problem_matches_jax(monkeypatch):
+    """benchmarks/bench_scene.py's problem with the colour gate
+    (PT_USE_COLOR=1) at 16 poses: the ROI path, where the cost looks each
+    point's rendered Lab up by its face id (JAX runs
+    nn_cost_fused_color_tri_pallas in interpret mode). Both sides get the
+    JAX env's Lab tables. Tolerance as the depth slice; a gate within ~1e-4
+    of its threshold may flip (XLA's FMAs, the TPU kernel's bf16 hi/lo Lab
+    recovery), which the integer totals absorb."""
+    from benchmarks.bench_scene import build_bench_problem
+
+    monkeypatch.setenv("BENCH_MODELS", "blob")
+    monkeypatch.setenv("PT_USE_COLOR", "1")
+    env, _, args, cfg = build_bench_problem(n_poses=16)
+    assert cfg.cost_type == 3 and cfg.roi_shape is not None
+    cfg = dataclasses.replace(cfg, icp_mode="fused",
+                              backend="pallas_direct_interpret")
+    build.reset_counts()
+    ref, out = _score_both(env._render_bank, args[3:], cfg,
+                           env._bank_icp_samples, env._bank_icp_normals,
+                           bank_lab=env._render_bank_lab)
+    assert build.TWIN_CALLS["cost_fused_color_tri"] == 1
+    _assert_slice_close(ref, out)
+    # The gate is on: colour-gated totals differ from depth-only ones.
+    depth = pscorer.score_pose_batch(
+        *[convert.tensor(a) for a in env._render_bank[:3]],
+        *[convert.tensor(a) for a in args[3:8]],
+        convert.scene_from_jax(args[8]),
+        dataclasses.replace(convert.scorer_config_from_jax(cfg), cost_type=2),
+        bank_backface=convert.tensor(env._render_bank[3]),
+        bank_icp_samples=convert.tensor(env._bank_icp_samples),
+        bank_icp_normals=convert.tensor(env._bank_icp_normals))
+    assert (depth.total_cost != out.total_cost).any()
+
+
+@pytest.mark.parametrize("roi_size", [0, 20])
+def test_color_score_pose_batch_box_scene_matches_jax(roi_size):
+    """The box scene with the colour gate: the full frame (the raster draws
+    Lab face colours; JAX runs nn_cost_fused_color_pallas) and ROI windows
+    (face-id lookup)."""
+    env = make_env(use_color_cost=True)
+    env.env = dataclasses.replace(env.env, icp_mode="fused", roi_size=roi_size,
+                                  kernel_backend="pallas_direct_interpret")
+    env.set_observation_from_states(gt_states())
+    cands = _box_candidates(8, seed=roi_size + 1)
+    cfg = env._scorer_config(do_icp=True)
+    assert cfg.cost_type == 3
+    poses = np.stack([env.pose_to_camera(s) for s in cands])
+    ids = np.asarray([s.id for s in cands], np.int32)
+    labels = np.asarray([s.segmentation_label_id - 1 for s in cands], np.int32)
+    totals = np.asarray(env._observed.seg_count, np.float32)[labels]
+    ref, out = _score_both(
+        env._render_bank,
+        (jnp.asarray(poses), jnp.asarray(ids), jnp.asarray(labels),
+         jnp.asarray(totals), env._proj, env._scene),
+        cfg, env._bank_icp_samples, env._bank_icp_normals,
+        bank_lab=env._render_bank_lab)
+    _assert_slice_close(ref, out)
+
+
+@pytest.mark.parametrize("cost_type,roi", [(3, None), (1, None),
+                                           (3, (20, 20)), (1, (20, 20))])
+def test_cpu_color_calls_run_the_color_twins(cost_type, roi):
+    """Cost types 1 and 3 (type 1 only through the scorer: the env has no
+    3-DoF input yet) reach the colour twin of their path and no kernel."""
+    from perception_tpu_torch.ops.color import rgb_to_lab
+
+    args, cfg, kw = _small_problem()
+    cfg = dataclasses.replace(cfg, cost_type=cost_type, roi_shape=roi)
+    build.reset_counts()
+    out = pscorer.score_pose_batch(*args, cfg, **kw,
+                                   bank_tri_lab=rgb_to_lab(args[1]))
+    expect = "cost_fused_color_tri" if roi else "cost_fused_color"
+    assert set(build.TWIN_CALLS) == {"raster_direct", "icp_fused", expect}
+    assert sum(build.LAUNCHES.values()) == 0
+    assert (out.total_cost >= 0).all()
+
+
+def test_color_cost_without_lab_bank_raises():
+    """Colour cost types without the Lab face table would take the JAX
+    package's composed cost path, which is not ported."""
+    args, cfg, kw = _small_problem()
+    with pytest.raises(NotImplementedError):
+        pscorer.score_pose_batch(*args, dataclasses.replace(cfg, cost_type=3),
+                                 **kw)

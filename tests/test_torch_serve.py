@@ -20,6 +20,9 @@ import pytest
 
 from perception_tpu.core.pose import CAM_TO_BODY
 from perception_tpu.io.poses_file import read_output_poses
+from perception_tpu_torch import convert
+from perception_tpu_torch.kernels import build
+from perception_tpu_torch.core.config import CameraIntrinsics, EnvConfig, PerchConfig
 from perception_tpu_torch.pipeline.env import PerceptionEnv, RecognitionInput
 from perception_tpu_torch.pipeline.recognizer import ModelSpec, ObjectRecognizer
 from perception_tpu_torch.serve import LocalizerService, serve
@@ -40,10 +43,35 @@ def jax_env():
     return env
 
 
+PCAM = convert.dataclass_from_jax(CAM, CameraIntrinsics)
+
+
+@pytest.fixture(scope="module")
+def jax_color_env():
+    """The box scene with the CIEDE2000 colour gate (cost type 3, full
+    frame: the JAX side runs nn_cost_fused_color_pallas in interpret
+    mode)."""
+    env = make_env(use_color_cost=True)
+    env.env = dataclasses.replace(env.env, icp_mode="fused",
+                                  kernel_backend="pallas_direct_interpret")
+    env.perch = dataclasses.replace(env.perch, gpu_batch_size=BATCH)
+    env.set_observation_from_states(gt_states())
+    return env
+
+
 def _port_env(jax_env):
-    env_cfg = dataclasses.replace(jax_env.env, icp_mode="auto",
-                                  kernel_backend="auto")
-    return PerceptionEnv(jax_env.bank, CAM, jax_env.perch, env_cfg)
+    env_cfg = convert.dataclass_from_jax(jax_env.env, EnvConfig,
+                                         icp_mode="auto", kernel_backend="auto")
+    return PerceptionEnv(convert.bank_from_jax(jax_env.bank), PCAM,
+                         convert.dataclass_from_jax(jax_env.perch, PerchConfig),
+                         env_cfg, device="cpu")
+
+
+def _port_recognizer(jax_env):
+    env = _port_env(jax_env)
+    return ObjectRecognizer.from_models(
+        convert.models_from_jax(jax_env.bank.models), PCAM, env.perch,
+        env.env, t_cap=16, device="cpu")
 
 
 def _payload(jax_env, pose_lists):
@@ -103,9 +131,7 @@ def test_localize_round_trip_matches_jax(jax_env):
     payload = _payload(jax_env, _pose_lists())
     ref = JaxService(_FakeRecognizer(jax_env)).handle(payload)
 
-    rec = ObjectRecognizer.from_models(jax_env.bank.models, CAM,
-                                       jax_env.perch, _port_env(jax_env).env,
-                                       t_cap=16)
+    rec = _port_recognizer(jax_env)
     server = serve(rec, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -133,9 +159,7 @@ def test_localize_round_trip_matches_jax(jax_env):
 
 
 def test_unported_service_paths_answer_with_errors(jax_env):
-    rec = ObjectRecognizer.from_models(jax_env.bank.models, CAM,
-                                       jax_env.perch, _port_env(jax_env).env,
-                                       t_cap=16)
+    rec = _port_recognizer(jax_env)
     service = LocalizerService(rec)
     for mode in ("tree", "greedy_icp"):
         with pytest.raises(NotImplementedError):
@@ -170,8 +194,8 @@ def test_recognizer_from_mesh_files_writes_outputs(jax_env, tmp_path):
     rec = ObjectRecognizer(
         [ModelSpec("red_box", str(tmp_path / "red.ply")),
          ModelSpec("green_box", str(tmp_path / "green.ply"))],
-        CAM, jax_env.perch, _port_env(jax_env).env,
-        use_external_pose_list=True, target_triangles=16)
+        PCAM, _port_env(jax_env).perch, _port_env(jax_env).env,
+        use_external_pose_list=True, target_triangles=16, device="cpu")
     rin = jax_env._input
     out_dir = tmp_path / "out"
     result = rec.localize_objects_greedy_render(
@@ -196,9 +220,10 @@ def test_recognizer_from_mesh_files_writes_outputs(jax_env, tmp_path):
     dict(pose_refinement_rounds=1),
 ])
 def test_unported_env_options_raise(jax_env, change):
-    env_cfg = dataclasses.replace(_port_env(jax_env).env, **change)
+    env = _port_env(jax_env)
+    env_cfg = dataclasses.replace(env.env, **change)
     with pytest.raises(NotImplementedError):
-        PerceptionEnv(jax_env.bank, CAM, jax_env.perch, env_cfg)
+        PerceptionEnv(env.bank, PCAM, env.perch, env_cfg, device="cpu")
 
 
 def test_unported_inputs_raise(jax_env):
@@ -208,11 +233,6 @@ def test_unported_inputs_raise(jax_env):
         env.set_input(RecognitionInput(depth_image=rin.depth_image,
                                        label_mask=rin.label_mask,
                                        use_external_pose_list=False))
-    env.perch = dataclasses.replace(env.perch, use_color_cost=True)
-    env.set_input(RecognitionInput(depth_image=rin.depth_image,
-                                   label_mask=rin.label_mask))
-    with pytest.raises(NotImplementedError):     # CIEDE2000 colour cost
-        env.score_object_states(gt_states())
 
 
 def test_render_composite_matches_jax(jax_env):
@@ -241,12 +261,82 @@ def test_render_composite_matches_jax(jax_env):
 
 
 def test_warmup_localises_its_own_scene(jax_env):
-    rec = ObjectRecognizer.from_models(jax_env.bank.models, CAM,
-                                       jax_env.perch, _port_env(jax_env).env,
-                                       t_cap=16)
+    rec = _port_recognizer(jax_env)
     assert rec.warmup() > 0
     assert rec.last_state.num_objects == 2
     for obj in rec.last_state.object_states:
         y = 0.12 * (obj.id - 0.5)
         assert np.linalg.norm([obj.pose.x - 0.58, obj.pose.y - y,
                                obj.pose.z + 0.02]) < 0.02
+
+
+def test_color_greedy_winners_match_jax(jax_color_env):
+    """Greedy recognition with the colour gate: the same winners as JAX,
+    costs within 2, translations within 1 mm."""
+    cands = jittered_candidates(gt_states(), np.random.default_rng(11),
+                                n=6, sigma=0.02)
+    ref_state, ref_chosen = jax_color_env.compute_greedy_poses(cands)
+    env = _port_env(jax_color_env)
+    rin = jax_color_env._input
+    env.set_input(RecognitionInput(
+        depth_image=rin.depth_image, color_image=rin.color_image,
+        label_mask=rin.label_mask, depth_factor=rin.depth_factor,
+        cam_to_world=rin.cam_to_world,
+        segmented_object_names=rin.segmented_object_names))
+    assert env._scorer_config().cost_type == 3
+    build.reset_counts()
+    state, chosen = env.compute_greedy_poses(cands)
+    assert set(build.TWIN_CALLS) == {"raster_direct", "icp_fused",
+                                     "cost_fused_color"}
+    assert state.num_objects == ref_state.num_objects == 2
+    for r, o in zip(ref_chosen, chosen):
+        assert (o.state.id, o.state.segmentation_label_id) == \
+            (r.state.id, r.state.segmentation_label_id)
+        assert abs(o.cost - r.cost) <= 2, (o.cost, r.cost)
+        np.testing.assert_allclose(o.adjusted_pose_cam[:3, 3],
+                                   r.adjusted_pose_cam[:3, 3], atol=1e-3)
+
+
+def test_color_localize_round_trip_matches_jax(jax_color_env):
+    """POST /localize carrying a color_image over the port's HTTP service:
+    the colour reaches set_input (the observed Lab differs from a
+    colourless request's), the colour twin scores, and the detections are
+    the JAX service's within 1 mm."""
+    from perception_tpu.serve import LocalizerService as JaxService
+
+    from tests.test_serve import _FakeRecognizer
+
+    payload = _payload(jax_color_env, _pose_lists())
+    payload["color_image"] = np.asarray(
+        jax_color_env._input.color_image).tolist()
+    ref = JaxService(_FakeRecognizer(jax_color_env)).handle(payload)
+
+    rec = _port_recognizer(jax_color_env)
+    server = serve(rec, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/localize"
+    try:
+        build.reset_counts()
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+    assert build.TWIN_CALLS["cost_fused_color"] == 1
+    assert out["stats"]["decode_time"] > 0
+    np.testing.assert_array_equal(
+        rec.env._scene.seg_rgb.numpy(),
+        np.asarray(jax_color_env._scene.seg_rgb))
+    assert rec.env._scene.seg_lab.abs().sum() > 0
+    ref_dets = {d["name"]: d for d in ref["detections"]}
+    dets = {d["name"]: d for d in out["detections"]}
+    assert set(dets) == set(ref_dets) == {"red_box", "green_box"}
+    for name, d in dets.items():
+        np.testing.assert_allclose(d["translation"],
+                                   ref_dets[name]["translation"], atol=1e-3)
