@@ -8,11 +8,16 @@ Run from the repository root on a machine with an NVIDIA GPU:
 It builds the hand-written kernels from `perception_tpu_torch/csrc/`, holds
 each against its plain PyTorch twin on the card at the shapes of the scoring
 benchmark (bumpy1024 models, 2048 poses; the depth-only and the colour-gated
-cost, ROI 32 and full frame), scores the batch on the card and again on the
-CPU twins, and serves /localize requests through the port's HTTP service on
-three paths (depth ROI, colour ROI, colour full frame), checking the
-detections against the ground truth. The launch counts are set to 0 just
-before each served path and read just after it. Every phase prints one JSON
+cost, ROI 32 and full frame; the real-sensor profile on a Kinect-degraded
+observation with the fused ICP in its exact, d2d, symmetric and adaptive
+modes; the composed "nn" and "gicp" refiners with the 1-NN kernel), scores
+the batches on the card and again on the CPU twins, and serves /localize
+requests through the port's HTTP service on five paths (depth ROI, colour
+ROI, colour full frame, real-sensor profile, gicp), checking the detections
+against the ground truth. It traces one depth, noisy and gicp batch with
+torch.profiler (device busy time, top ops). The launch counts are set to 0
+just before each served path or scored batch and read just after it. Every
+phase prints one JSON
 line; the run ends with a {"kernels": [...]} line, the card's `nvidia-smi`
 name and power limit, and {"ok": true, "device": {...}}. Any failed check
 raises and the exit code is non-zero. There is no CPU fallback: without a
@@ -49,8 +54,10 @@ from perception_tpu_torch.ops import (
     cost_fused,
     cost_fused_color,
     icp_fused,
+    knn,
     raster_direct,
 )
+from perception_tpu_torch.ops import icp as icp_ops
 from perception_tpu_torch.pipeline import scorer
 from perception_tpu_torch.pipeline.recognizer import ObjectRecognizer
 from perception_tpu_torch.serve import serve
@@ -64,7 +71,11 @@ HBM_BYTES = 3.35e12       # H100 SXM HBM3
 RASTER_PAIR_OPS = 16      # 4 plane evaluations (2 mul + 2 add) per pixel x tri
 RASTER_TRI_OPS = 130      # per-pose triangle setup
 ICP_PAIR_OPS = 8          # expanded-form distance per source x target
-ICP_POINT_OPS = 120       # transform, residual, Jacobian, 29 sums per point
+# Per source point and Gauss-Newton iteration, by mode: transform, residual,
+# Jacobian and the mode's sums (29 / 44 + centroid pass / 71 / the 3x3
+# weight, its adjugate and 29 sums).
+ICP_POINT_OPS = {"p2p": 120, "d2d": 200, "sym": 310, "exact": 260}
+NN_PAIR_OPS = 9           # 3 sub, 3 mul, 3 add per query x reference
 COST_PAIR_OPS = 9         # 3 sub, 3 mul, 3 add per point x target
 CIEDE_OPS = 160           # one CIEDE2000 per gated point
 
@@ -104,6 +115,10 @@ KERNELS = {
         cost_fused_color.nn_cost_fused_color_tri_twin,
         "perception_tpu_torch/csrc/cost_fused_color.cu",
         "perception_tpu/ops/pallas_cost.py:361"),
+    "nn1_batch": Kernel(
+        knn.prepare_inputs, knn.launch_kernel, knn.nn1_batch_twin,
+        "perception_tpu_torch/csrc/knn.cu",
+        "perception_tpu/ops/pallas_knn.py:71"),
 }
 # The wrapper each kernel is recorded at: (module, attribute).
 SITES = {
@@ -112,7 +127,9 @@ SITES = {
     "cost_fused": (cost, "nn_cost_fused"),
     "cost_fused_color": (cost, "nn_cost_fused_color"),
     "cost_fused_color_tri": (cost, "nn_cost_fused_color_tri"),
+    "nn1_batch": (icp_ops, "nn1_batch"),
 }
+ICP_MODES = ("exact", "d2d", "sym", "adaptive")   # beside p2p (depth batch)
 DEPTH = ("raster_direct", "icp_fused", "cost_fused")
 
 
@@ -225,12 +242,14 @@ def work(name: str, pargs: tuple, pkw: dict, out, twin_extra) -> tuple:
                 + n * t * RASTER_TRI_OPS), moved
     if name == "icp_fused":
         _, p, _ = pargs[0].shape
-        s = pargs[2].shape[1]
-        iters = twin_extra                      # [N] iterations per pose
-        sweeps = torch.ceil(iters / max(pkw["nn_every"], 1))
+        s = pargs[3].shape[1]
+        iters, sweeps = twin_extra              # [N] per pose, as run
         ops = (sweeps.sum().item() * p * s * ICP_PAIR_OPS
-               + iters.sum().item() * p * ICP_POINT_OPS)
+               + iters.sum().item() * p * ICP_POINT_OPS[pkw["mode"]])
         return ops, moved
+    if name == "nn1_batch":
+        n, p, _ = pargs[0].shape
+        return n * p * pargs[1].shape[1] * NN_PAIR_OPS, moved
     n, p, _ = pargs[0].shape
     s = pargs[-2 if name != "cost_fused" else 2].shape[1]
     ops = n * p * s * COST_PAIR_OPS
@@ -266,16 +285,39 @@ def compare(name: str, kernel_out, twin_out) -> dict:
                 "err_unit": "cm of depth"}
     if name == "icp_fused":
         per_pose = (kernel_out - twin_out).abs().amax(dim=(1, 2))
-        frac = (per_pose <= 1e-4).float().mean().item()
-        require(frac >= 0.99, f"ICP deltas within 1e-4 on {frac:.4f} < 0.99")
-        return {"within_1e-4_frac": frac,
-                "max_abs_err": per_pose.max().item(),
+        frac = (per_pose == 0).float().mean().item()
+        require(frac == 1.0, f"ICP deltas equal to the twin on {frac:.4f}")
+        return {"equal_frac": frac, "max_abs_err": per_pose.max().item(),
                 "err_unit": "delta entry (rotation, m)"}
+    if name == "nn1_batch":
+        (kd, ki), (td, ti) = kernel_out, twin_out
+        same = (ki == ti) & (kd == td)
+        frac = same.float().mean().item()
+        fin = torch.isfinite(kd) & torch.isfinite(td)
+        err = (kd - td).abs()[fin].max().item() if fin.any() else 0.0
+        require(frac == 1.0, f"nn1_batch equal to the twin on {frac:.6f}")
+        return {"equal_frac": frac, "max_abs_err": err, "err_unit": "m^2"}
     same = torch.stack([a == b for a, b in zip(kernel_out, twin_out)]).all(0)
     err = max((a - b).abs().max().item() for a, b in zip(kernel_out, twin_out))
     frac = same.float().mean().item()
     require(frac >= 0.999, f"{name} counts equal on {frac:.4f} < 0.999")
     return {"equal_frac": frac, "max_abs_err": err, "err_unit": "count"}
+
+
+def library_ms(name: str, pargs: tuple):
+    """One PyTorch call computing the kernel's function, timed, where there
+    is one: the 1-NN as cdist (difference form) with the invalid references
+    masked to inf, then min. Used nowhere in the port."""
+    if name != "nn1_batch":
+        return None
+    query, ref4 = pargs
+    ref = ref4[..., :3].contiguous()
+    valid = ref4[..., 3] == 0.0
+
+    def call():
+        d = torch.cdist(query, ref, compute_mode="donot_use_mm_for_euclid_dist")
+        return torch.where(valid[:, None, :], d, float("inf")).min(dim=-1)
+    return time_ms(call)
 
 
 def kernel_phase(name: str, call: tuple, label: str) -> dict:
@@ -285,8 +327,14 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
     out_k = k.launch(*pargs, **pkw)
     sync()
     extra = None
+    iterations = {}
     if name == "icp_fused":
-        out_t, extra = k.twin(*pargs, **pkw, return_iterations=True)
+        out_t, iters, sweeps = k.twin(*pargs, **pkw, return_counts=True)
+        extra = (iters, sweeps)
+        iterations = {"mode": pkw["mode"], "nn_every": pkw["nn_every"],
+                      "iterations_mean": iters.mean().item(),
+                      "iterations_max": iters.max().item(),
+                      "sweeps_mean": sweeps.mean().item()}
     else:
         out_t = k.twin(*pargs, **pkw)
         if name.startswith("cost_fused_color"):
@@ -294,16 +342,52 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
     sync()
     result = compare(name, out_k, out_t)
     result["ms"] = time_ms(lambda: k.launch(*pargs, **pkw))
-    result["plain_ms"] = time_ms(lambda: k.twin(*pargs, **pkw))
+    result["plain_ms"] = time_ms(lambda: k.twin(*pargs, **pkw), warmup=1,
+                                 reps=5)
     ops, moved = work(name, pargs, pkw, out_k, extra)
     t_ops, t_bytes = ops / FP32_FLOPS * 1e3, moved / HBM_BYTES * 1e3
     result.update(ops=ops, bytes=moved, bound_ms=max(t_ops, t_bytes),
                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                  library_ms=None)
+                  library_ms=library_ms(name, pargs), **iterations)
     shapes = [list(a.shape) for a in pargs if isinstance(a, torch.Tensor)]
     emit({"phase": "kernel", "kernel": name, "case": label,
           "shapes": shapes, **result})
     return result
+
+
+def profile_batch(bp, label: str, cfg=None, top: int = 8) -> None:
+    """One scoring batch under torch.profiler (CPU + CUDA activity): the
+    device's busy time (the kernels' device time summed; one stream, so they
+    do not overlap) against the host clock around the batch, the kernels that
+    take most of it, and the PyTorch ops that launched most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bp.score(cfg=cfg)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bp.score(cfg=cfg)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = kernels.setdefault(e.name[:80], [0.0, 0])
+            k[0] += e.time_range.elapsed_us() / 1e3
+            k[1] += 1
+    busy_ms = sum(v[0] for v in kernels.values())
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    op_ms = {e.key: getattr(e, "self_device_time_total", 0) / 1e3
+             for e in ops}
+    emit({"phase": "profile", "case": label, "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+          "kernel_launches": sum(v[1] for v in kernels.values()),
+          "top_kernels_ms": sorted(([k, v[0], v[1]] for k, v in
+                                    kernels.items()), key=lambda r: -r[1])[:top],
+          "top_ops_device_ms": sorted(op_ms.items(),
+                                      key=lambda r: -r[1])[:top]})
 
 
 def cpu_scene(scene: scorer.ObservedScene) -> scorer.ObservedScene:
@@ -311,19 +395,29 @@ def cpu_scene(scene: scorer.ObservedScene) -> scorer.ObservedScene:
                                    for f in dataclasses.fields(scene)})
 
 
-def check_kernels(bp, path: tuple, label: str) -> dict:
-    """The scoring batch must call exactly the kernels of `path`; run each
-    of them and its twin on the inputs the batch hands its wrapper; compare
-    and time."""
+def check_kernels(bp, path: tuple, label: str, cfg=None,
+                  only: tuple | None = None) -> tuple[dict, dict]:
+    """The scoring batch (with `cfg` if given) must call exactly the kernels
+    of `path`; run each of them (or those in `only`) and its twin on the
+    inputs the batch hands its wrapper; compare and time. Also returns the
+    launches the batch made (counts set to 0 just before it)."""
+    build.reset_counts()
     with recorded_kernel_calls() as calls:
-        bp.score()
+        bp.score(cfg=cfg)
     sync()
+    launches = dict(build.LAUNCHES)
     require(set(calls) == set(path), f"{label} called {sorted(calls)}")
-    return {name: kernel_phase(name, calls[name], label) for name in path}
+    require(all(launches.get(n, 0) > 0 for n in path),
+            f"{label} launches {launches}")
+    return {name: kernel_phase(name, calls[name], label)
+            for name in (path if only is None else only)}, launches
 
 
-def check_slice(bp, label: str) -> None:
-    """score_pose_batch on the card; its first N_CPU poses on the CPU."""
+def check_slice(bp, label: str, equal_frac: float = 0.98, max_diff: int = 2,
+                close_frac: float = 1.0, trans_frac: float = 0.98) -> None:
+    """score_pose_batch on the card; its first N_CPU poses on the CPU. The
+    totals must be equal on `equal_frac` of the poses and within `max_diff`
+    on `close_frac`, the translations within 1 mm on `trans_frac`."""
     n = len(bp.candidates)
     out = bp.score()
     sync()
@@ -348,7 +442,9 @@ def check_slice(bp, label: str) -> None:
     cpu_s = time.perf_counter() - t0
     g_tot = out.total_cost[:N_CPU].cpu()
     tot_eq = (g_tot == ref.total_cost).float().mean().item()
-    tot_diff = (g_tot - ref.total_cost).abs().max().item()
+    diffs = (g_tot - ref.total_cost).abs()
+    tot_diff = diffs.max().item()
+    close = (diffs <= max_diff).float().mean().item()
     trans = (out.adjusted_poses[:N_CPU, :3, 3].cpu()
              - ref.adjusted_poses[:, :3, 3]).abs().amax(dim=1)
     trans_ok = (trans <= 1e-3).float().mean().item()
@@ -361,10 +457,12 @@ def check_slice(bp, label: str) -> None:
           "total_equal_frac": tot_eq, "total_max_diff": tot_diff,
           "total_differs_at": torch.nonzero(g_tot != ref.total_cost)
           .flatten().tolist(),
-          "translation_within_1mm_frac": trans_ok})
-    require(tot_eq >= 0.98, f"{label}: total_cost equal on {tot_eq:.3f}")
-    require(tot_diff <= 2, f"{label}: total_cost differs by {tot_diff} > 2")
-    require(trans_ok >= 0.98,
+          "translation_within_1mm_frac": trans_ok,
+          "translation_max_diff_m": trans.max().item()})
+    require(tot_eq >= equal_frac, f"{label}: total_cost equal on {tot_eq:.3f}")
+    require(close >= close_frac,
+            f"{label}: total_cost within {max_diff} on {close:.3f}")
+    require(trans_ok >= trans_frac,
             f"{label}: translations within 1 mm on {trans_ok:.3f}")
 
 
@@ -376,7 +474,7 @@ def check_served_path(bp, dev, label: str, requests: int) -> dict:
     env = bp.env
     rec = ObjectRecognizer.from_models(env.bank.models, env.camera, env.perch,
                                        env.env, t_cap=1024, device=dev)
-    rec.env.set_observation_from_states(bp.gt)
+    bp.observe(rec.env)
     rin = rec.env._input
     visible = [i for i, c in enumerate(rec.env._observed.seg_count.tolist())
                if c > 0]
@@ -502,7 +600,7 @@ def main() -> int:
     # the depth-only ROI batch (and the full-frame observation render), the
     # colour ROI batch and the colour full-frame batch.
     depth = problem(dev)
-    results = check_kernels(depth, DEPTH, "scoring batch")
+    results, _ = check_kernels(depth, DEPTH, "scoring batch")
     with recorded_kernel_calls() as frame_calls:
         depth.env.render_composite(depth.gt)
     sync()
@@ -513,16 +611,71 @@ def main() -> int:
     color_roi = problem(dev, use_color=True)
     results["cost_fused_color_tri"] = check_kernels(
         color_roi, ("raster_direct", "icp_fused", "cost_fused_color_tri"),
-        "colour ROI batch")["cost_fused_color_tri"]
+        "colour ROI batch")[0]["cost_fused_color_tri"]
     color_full = problem(dev, use_color=True, roi_size=0)
     results["cost_fused_color"] = check_kernels(
         color_full, ("raster_direct", "icp_fused", "cost_fused_color"),
-        "colour full-frame batch")["cost_fused_color"]
+        "colour full-frame batch")[0]["cost_fused_color"]
+    # The real-sensor profile on the Kinect-degraded observation: the exact
+    # fused ICP with source normals; then the fused ICP in its other modes
+    # and the composed "nn" refiner, each scored once on the same batch.
+    noisy = problem(dev, icp_mode="fused_d2d_exact", sensor="kinect")
+    require(noisy.env.env == noisy.env.env.noisy_profile(),
+            "the noisy batch runs the real-sensor profile")
+    icp_results, _ = check_kernels(noisy, DEPTH, "noisy batch")
+    icp_results = {"exact": icp_results["icp_fused"]}
+    with recorded_kernel_calls() as calls:
+        noisy.score()
+    src_xyz, src_valid = calls["icp_fused"][0][:2]
+    emit({"phase": "breakdown", "case": "noisy batch",
+          "source_normals_ms": time_ms(
+              lambda: icp_ops.cloud_normals(src_xyz, src_valid), warmup=1,
+              reps=5)})
+    icp_launches = {}
+    for mode, change in (
+            ("d2d", dict(icp_mode="fused_d2d")),
+            ("sym", dict(icp_mode="fused_d2d", icp_d2d_symmetric=True)),
+            ("adaptive", dict(icp_mode="fused_d2d", icp_nn_every=0))):
+        res, counts = check_kernels(
+            noisy, DEPTH, f"noisy batch, icp {mode}",
+            cfg=dataclasses.replace(noisy.cfg, **change), only=("icp_fused",))
+        icp_results[mode] = res["icp_fused"]
+        icp_launches[mode] = counts["icp_fused"]
+    nn_cfg = dataclasses.replace(noisy.cfg, icp_mode="nn")
+    _, nn_counts = check_kernels(
+        noisy, ("raster_direct", "nn1_batch", "cost_fused"),
+        "noisy batch, icp nn", cfg=nn_cfg, only=())
+    nn_out = noisy.score(cfg=nn_cfg)
+    sync()
+    require(bool(torch.isfinite(nn_out.adjusted_poses).all()),
+            "nn: adjusted poses finite")
+    emit({"phase": "scored", "case": "noisy batch, icp nn",
+          "launches": nn_counts,
+          "valid_poses": int((nn_out.total_cost >= 0).sum()),
+          "batch_ms": time_ms(lambda: noisy.score(cfg=nn_cfg), warmup=1,
+                              reps=5)})
+    # The composed GICP refiner on the same observation: the 1-NN kernel at
+    # its first iteration's inputs.
+    gicp = problem(dev, icp_mode="gicp", sensor="kinect")
+    results["nn1_batch"] = check_kernels(
+        gicp, ("raster_direct", "nn1_batch", "cost_fused"),
+        "gicp batch")[0]["nn1_batch"]
+
+    # Where a batch's time goes on the device.
+    profile_batch(depth, "depth ROI batch")
+    profile_batch(noisy, "noisy batch")
+    profile_batch(gicp, "gicp batch")
 
     # 4. The slices on the card, and their first N_CPU poses on the CPU.
     check_slice(depth, "depth ROI")
     check_slice(color_roi, "colour ROI")
     check_slice(color_full, "colour full frame")
+    # The real-sensor slice rounds alike on both devices (fixed-order
+    # normals, bit-equal kernels); the GICP slice sums its normal equations
+    # with torch reductions, whose order differs between the devices.
+    check_slice(noisy, "noisy profile", equal_frac=1.0, max_diff=0,
+                trans_frac=1.0)
+    check_slice(gicp, "gicp", equal_frac=0.0, max_diff=5, close_frac=0.98)
 
     # 5. The served paths; the counts cover exactly each path's requests.
     launches = check_served_path(depth, dev, "depth ROI", 3)
@@ -537,19 +690,37 @@ def main() -> int:
     require(full_launches.get("cost_fused_color", 0) > 0,
             f"colour full-frame launches: {full_launches}")
     launches["cost_fused_color"] = full_launches["cost_fused_color"]
+    noisy_launches = check_served_path(noisy, dev, "noisy profile", 2)
+    require(all(noisy_launches.get(n, 0) > 0 for n in DEPTH)
+            and noisy_launches.get("nn1_batch", 0) == 0,
+            f"noisy-profile launches: {noisy_launches}")
+    icp_launches["exact"] = noisy_launches["icp_fused"]
+    gicp_launches = check_served_path(gicp, dev, "gicp", 1)
+    require(gicp_launches.get("nn1_batch", 0) > 0
+            and gicp_launches.get("icp_fused", 0) == 0,
+            f"gicp launches: {gicp_launches}")
+    launches["nn1_batch"] = gicp_launches["nn1_batch"]
     require(not any(m.split(".")[0] in ("jax", "perception_tpu", "benchmarks")
                     for m in sys.modules),
             "jax or the JAX package was imported")
 
+    def entry(name, res, count, mode=None):
+        k = KERNELS[name]
+        out = {"name": name, "route": "cuda", "source": k.source,
+               "replaces": k.replaces, "launches": count,
+               "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+               "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+               "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+        if mode:
+            out["mode"] = mode
+        return out
+
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[name],
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
-         "bound_ms": results[name]["bound_ms"],
-         "bound_by": results[name]["bound_by"],
-         "library_ms": results[name]["library_ms"]}
-        for name, k in KERNELS.items()]}), flush=True)
+        entry(name, results[name], launches[name],
+              "p2p" if name == "icp_fused" else None)
+        for name in KERNELS] + [
+        entry("icp_fused", icp_results[m], icp_launches[m], m)
+        for m in ICP_MODES]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,8 +6,8 @@ The port's own copy of `perception_tpu/core/config.py`: the same fields with
 the same defaults, so a configuration means the same thing to both packages
 (the JAX file's field comments give the evidence behind each default). The
 YAML file reader waits for the CLI slice; `from_yaml_dict` takes an already
-parsed mapping. The JAX EnvConfig's speed and real-sensor profiles are not
-copied: the real-sensor one selects an ICP mode that is not ported yet.
+parsed mapping. Of the JAX EnvConfig's two profiles the real-sensor one,
+`noisy_profile`, is copied; the speed profile waits for icp_source="model".
 """
 
 from __future__ import annotations
@@ -152,3 +152,10 @@ class EnvConfig:
     def from_yaml_dict(cls, d: Mapping[str, Any]) -> "EnvConfig":
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+    def noisy_profile(self) -> "EnvConfig":
+        """The documented real-sensor profile: the exact-covariance fused
+        D2D refiner (the JAX package measured it +3.21 [+1.06, +5.34] paired
+        AUC over the point-to-plane default under its Kinect noise model, and
+        not better noise-free), for physical depth cameras."""
+        return dataclasses.replace(self, icp_mode="fused_d2d_exact")

@@ -1,37 +1,88 @@
-// Fused point-to-plane ICP: the whole Gauss-Newton refinement of one pose in
-// one block.
+// Fused ICP: the whole Gauss-Newton refinement of one pose in one block, in
+// four cost modes and with fixed-period or adaptive association.
 //
-// Replaces icp_fused_pallas in point-to-plane mode
-// (perception_tpu/ops/pallas_icp.py:632, kernel _icp_kernel at :69-553).
+// Replaces icp_fused_pallas (perception_tpu/ops/pallas_icp.py:632, kernel
+// _icp_kernel at :69-553) in all its modes:
+//   p2p    point-to-plane (d2d_epsilon = 0);
+//   d2d    plane + tangential split of the GICP weighting: 9 point-to-point
+//          sums beside the plane terms, weight wpp = eps / (1 - eps), the
+//          rotation centred on the correspondence centroid (:248-262, :347-381);
+//   sym    d2d plus the plane of the source normal rotated by the current
+//          estimate, wpp doubled (:382-400);
+//   exact  the full 3x3 Mahalanobis Gauss-Newton of icp_gicp_batch: per point
+//          W = inv(2I - (1-eps)(nt nt^T + ns' ns'^T)) by adjugate, H = J^T W J,
+//          Marquardt damping (:263-330, :413-424).
 // Per association sweep: the expanded-form squared distance
 // max(|t|^2 + tadd - 2 t.c + |c|^2, 0) from each source point to the S
-// cropped targets, and a packed (distance, index) min. Then the plane
-// (n, n.t) of the winner, the 21 + 6 normal-equation sums, trace-scaled LM
-// damping, an unrolled 6x6 Cholesky, the Rodrigues step and compose,
-// best-RMSE tracking, and the step-norm and stagnation exits.
+// cropped targets and a packed (distance, index) min; the winner's plane (and
+// point in the d2d modes) is cached in shared memory for the iterations that
+// do not re-associate. Then the normal-equation sums, damping, an unrolled
+// 6x6 Cholesky, the Rodrigues step and compose, best-RMSE tracking, and the
+// step-norm and stagnation exits.
 //
-// What bounds it on the H100: the association sweep, P x S = 64 K distance
-// evaluations of ~8 flops per pose and sweep (~11 GFLOP for 2048 poses and
-// 10 sweeps), and the serial per-iteration solve. The simple design:
-//   * one block per pose, 256 threads (one per source point at P = 256);
-//   * the targets (S x 32 bytes, 8 KB at S = 256) sit in shared memory as
-//     association rows (-2t, |t|^2 + tadd) and plane rows (n, n.t), so the
-//     winner's plane is an exact f32 read from shared memory (the TPU
-//     kernel's bf16 hi/lo one-hot recovery is not needed);
-//   * the association of each point is cached in shared memory for the
-//     iterations that do not re-associate (nn_every > 1);
-//   * the 29 sums reduce by warp shuffles, then one thread solves, updates
-//     the pose state and broadcasts it through shared memory; the block
-//     leaves its loop when its pose is done or at max_iterations.
-// Built with --fmad=false so the association rounds as in the PyTorch twin.
+// Adaptive association (nn_every = 0) re-associates when some active pose of
+// the pose's group of 8 (poses 8*floor(i/8) ... +7, as the TPU kernel's
+// _GROUP) has moved more than assoc_trigger since the group's last sweep. The
+// group is a thread-block cluster of 8: each block publishes its masked motion
+// bound and done flag in shared memory, and every block reads the 8 values
+// through distributed shared memory between two cluster barriers per
+// iteration. Done blocks skip the work but keep joining the barriers until
+// the whole group is done; the blocks past N (the grid is rounded up to 8)
+// count as done from the start.
+//
+// What bounds it on the H100: the association sweep, P x S distance
+// evaluations of ~8 flops per pose and sweep, plus the per-point terms (~120
+// flops in p2p, ~330 in exact) and the serial per-iteration solve. The simple
+// design: one block per pose, 256 threads (one per source point at P = 256),
+// targets in shared memory as association rows (-2t, |t|^2 + tadd), plane rows
+// (n, n.t) and point rows, so the winner's attributes are exact float32 reads
+// (the TPU kernel's bf16 hi/lo one-hot recovery is not needed); the sums
+// reduce by warp shuffles, then one thread solves and updates the pose state.
+// The d2d modes make two reduction passes per iteration: the centroid
+// (count, sum w c) first, then the terms about it.
+// Built with --fmad=false so every sum rounds as in the PyTorch twin.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 29;   // 21 upper-triangle H, 6 g, count, sum w e^2
+constexpr int kGroup = 8;   // poses per adaptive-association group
+
+enum Mode { kP2P = 0, kD2D = 1, kSym = 2, kExact = 3 };
+
+// Per-point sums: 0-20 upper-triangle H, 21-26 g (negated by the solve),
+// 27 count, 28 sum w res^2; d2d adds 29-37 the point-to-point moments
+// (ax^2, ay^2, az^2, ax ay, ax az, ay az, ax, ay, az) and 38-43 the
+// (a x r, r) gradient terms; sym adds 44-64 its plane H and 65-70 its g.
+template <int M>
+struct Sums {
+  static constexpr int value = M == kSym ? 71 : (M == kD2D ? 44 : 29);
+};
+
+// Cached association per point: n, n.t, dmin, and q in the d2d modes.
+template <int M>
+struct CacheRows {
+  static constexpr int value = M == kP2P ? 5 : 8;
+};
+
+struct Job {
+  const float* src;    // [N, P, 3]
+  const float* snrm;   // [N, P, 3] source normals (sym, exact) or null
+  const float* sadd;   // [N, P]: 0 valid, +inf invalid
+  const float* tgt;    // [N, S, 8] pack_targets rows
+  float* out;          // [N, 4, 4]
+  int N, P, S, max_iterations, nn_every, idx_mask;
+  float max_corr_sq, damping, rot_eps_sq, trn_eps_sq, stagnation_streak;
+  float wpp;           // tangential weight (doubled in sym)
+  float ome;           // 1 - eps
+  float damp1;         // 1 + damping (Marquardt)
+  float assoc_trigger;
+};
 
 struct PoseState {
   float cur[12];    // current transform: rotation row-major, then t
@@ -39,7 +90,11 @@ struct PoseState {
   float best_rmse;
   float streak;
   float done;
-  int k;            // global iteration; max_iterations once done
+  float accum;      // adaptive: motion bound since the group's last sweep
+  float cen[3];     // d2d: correspondence centroid of this iteration
+  float ext;        // adaptive: max |a| over the points
+  int need;         // adaptive: the group re-associates this iteration
+  int stop;         // adaptive: the whole group is done
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -50,12 +105,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Block sum of K per-thread values: a warp-shuffle tree, then the warp sums
+// in order. s_red holds kWarps * K floats; the result lands in s_out[0..K).
+template <int K>
+__device__ __forceinline__ void block_sum(float (&acc)[K], float* s_red,
+                                          float* s_out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const float v = warp_sum(acc[q]);
+    if (lane == 0) s_red[warp * K + q] = v;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < K; q += kThreads) {
+    float v = s_red[q];
+    for (int w = 1; w < kWarps; ++w) v += s_red[w * K + q];
+    s_out[q] = v;
+  }
+  __syncthreads();
+}
+
 // One Gauss-Newton update of the pose state from the reduced sums, as the
 // TPU kernel's per-iteration tail (pallas_icp.py:401-531) for one pose.
+template <int M, bool ADAPTIVE>
 __device__ void solve_and_update(const float* sums, PoseState& st,
-                                 int max_iterations, float damping,
-                                 float rot_eps_sq, float trn_eps_sq,
-                                 float stagnation_streak) {
+                                 const Job& jb) {
   float h[6][6];
   float g[6];
   int q = 0;
@@ -65,6 +139,36 @@ __device__ void solve_and_update(const float* sums, PoseState& st,
   for (int i = 0; i < 6; ++i) g[i] = -sums[21 + i];
   const float count = sums[27];
   const float res2 = sums[28];
+  if (M == kD2D || M == kSym) {
+    // Tangential half of the D2D cost (pallas_icp.py:361-380).
+    const float wpp = jb.wpp;
+    const float cxs = sums[29], cys = sums[30], czs = sums[31];
+    const float cxy = sums[32], cxz = sums[33], cyz = sums[34];
+    const float sx = sums[35], sy = sums[36], sz = sums[37];
+    h[0][0] = h[0][0] + wpp * (cys + czs);
+    h[0][1] = h[0][1] + wpp * (-cxy);
+    h[0][2] = h[0][2] + wpp * (-cxz);
+    h[0][4] = h[0][4] + wpp * (-sz);
+    h[0][5] = h[0][5] + wpp * sy;
+    h[1][1] = h[1][1] + wpp * (cxs + czs);
+    h[1][2] = h[1][2] + wpp * (-cyz);
+    h[1][3] = h[1][3] + wpp * sz;
+    h[1][5] = h[1][5] + wpp * (-sx);
+    h[2][2] = h[2][2] + wpp * (cxs + cys);
+    h[2][3] = h[2][3] + wpp * (-sy);
+    h[2][4] = h[2][4] + wpp * sx;
+    h[3][3] = h[3][3] + wpp * count;
+    h[4][4] = h[4][4] + wpp * count;
+    h[5][5] = h[5][5] + wpp * count;
+    for (int i = 0; i < 6; ++i) g[i] = g[i] + (-wpp) * sums[38 + i];
+    if (M == kSym) {
+      q = 44;
+      for (int i = 0; i < 6; ++i) {
+        for (int j = i; j < 6; ++j) h[i][j] = h[i][j] + sums[q++];
+      }
+      for (int i = 0; i < 6; ++i) g[i] = g[i] + (-sums[65 + i]);
+    }
+  }
 
   const bool ok = count >= 6.0f;
   const bool active = st.done < 0.5f;
@@ -75,9 +179,15 @@ __device__ void solve_and_update(const float* sums, PoseState& st,
     for (int i = 0; i < 12; ++i) st.best[i] = st.cur[i];
   }
 
-  const float trace = h[0][0] + h[1][1] + h[2][2] + h[3][3] + h[4][4] + h[5][5];
-  const float lam = damping * trace / 6.0f + 1e-9f;
-  for (int i = 0; i < 6; ++i) h[i][i] = h[i][i] + lam;
+  if (M == kExact) {
+    // Marquardt diagonal scaling (pallas_icp.py:413-418).
+    for (int i = 0; i < 6; ++i) h[i][i] = h[i][i] * jb.damp1 + 1e-9f;
+  } else {
+    const float trace =
+        h[0][0] + h[1][1] + h[2][2] + h[3][3] + h[4][4] + h[5][5];
+    const float lam = jb.damping * trace / 6.0f + 1e-9f;
+    for (int i = 0; i < 6; ++i) h[i][i] = h[i][i] + lam;
+  }
   if (!ok) {   // identity system: xi = 0
     for (int i = 0; i < 6; ++i) {
       for (int j = i; j < 6; ++j) h[i][j] = i == j ? 1.0f : 0.0f;
@@ -135,7 +245,8 @@ __device__ void solve_and_update(const float* sums, PoseState& st,
   e[7] = a * wx + b * wy * wz;
   e[8] = 1.0f - b * (wx * wx + wy * wy);
 
-  // Compose R' = E R, t' = E t + u; frozen once done.
+  // Compose R' = E R, t' = E t + u (+ cen - E cen about the centroid);
+  // frozen once done.
   if (active) {
     float nxt[12];
     const float* c = st.cur;
@@ -146,47 +257,62 @@ __device__ void solve_and_update(const float* sums, PoseState& st,
       }
       nxt[9 + i] = e[3 * i] * c[9] + e[3 * i + 1] * c[10] +
                    e[3 * i + 2] * c[11] + xi[3 + i];
+      if (M != kP2P) {
+        nxt[9 + i] = nxt[9 + i] + st.cen[i] -
+                     (e[3 * i] * st.cen[0] + e[3 * i + 1] * st.cen[1] +
+                      e[3 * i + 2] * st.cen[2]);
+      }
     }
     for (int i = 0; i < 12; ++i) st.cur[i] = nxt[i];
   }
 
   const float rot_n2 = wx * wx + wy * wy + wz * wz;
   const float trn_n2 = xi[3] * xi[3] + xi[4] * xi[4] + xi[5] * xi[5];
-  const bool step_small = rot_n2 < rot_eps_sq && trn_n2 < trn_eps_sq;
+  if (ADAPTIVE && active) {
+    // Point-motion bound of this step: rotation about the frame of a times
+    // the lever arm, plus the translation (pallas_icp.py:511-520).
+    st.accum = st.accum + (theta * st.ext + sqrtf(trn_n2));
+  }
+  const bool step_small = rot_n2 < jb.rot_eps_sq && trn_n2 < jb.trn_eps_sq;
   const bool improved_sig = rmse < old_best - 1e-6f;
   float streak = improved_sig ? 0.0f : st.streak + 1.0f;
   if (!active) streak = st.streak;
   st.streak = streak;
-  const bool done_now = step_small || streak >= stagnation_streak || !ok;
+  const bool done_now = step_small || streak >= jb.stagnation_streak || !ok;
   if (active && done_now) st.done = 1.0f;
-  st.k = st.done > 0.5f ? max_iterations : st.k + 1;
 }
 
-__global__ void __launch_bounds__(kThreads) icp_fused_kernel(
-    const float* __restrict__ src,    // [N, P, 3]
-    const float* __restrict__ sadd,   // [N, P]: 0 valid, +inf invalid
-    const float* __restrict__ tgt,    // [N, S, 8] pack_targets rows
-    int P, int S, int max_iterations, float max_corr_sq, float damping,
-    int nn_every, float rot_eps_sq, float trn_eps_sq, float stagnation_streak,
-    int idx_mask, float* __restrict__ out) {   // [N, 4, 4]
+template <int M, bool ADAPTIVE>
+__global__ void __launch_bounds__(kThreads) icp_fused_kernel(const Job jb) {
+  constexpr int NS = Sums<M>::value;
+  constexpr int NC = CacheRows<M>::value;
+  const int P = jb.P, S = jb.S;
   extern __shared__ float4 smem4[];
   float4* s_tab = smem4;                          // (-2t, |t|^2 + tadd)
   float4* s_plane = smem4 + S;                    // (n, n.t)
-  float* s_assoc = reinterpret_cast<float*>(smem4 + 2 * S);   // [5][P]
-  __shared__ float s_red[kWarps][kSums];
-  __shared__ float s_sums[kSums];
+  float4* s_pt = smem4 + 2 * S;                   // (t, 0), d2d modes
+  float* s_assoc =
+      reinterpret_cast<float*>(smem4 + (M == kP2P ? 2 : 3) * S);  // [NC][P]
+  __shared__ float s_red[kWarps * NS];
+  __shared__ float s_sums[NS];
+  __shared__ float s_ext[kWarps];
+  __shared__ float s_pub[2];                      // adaptive: (bound, done)
   __shared__ PoseState st;
 
   const int n = blockIdx.x;
+  const bool real = n < jb.N;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const float* tg = tgt + (size_t)n * S * 8;
-  for (int s = tid; s < S; s += kThreads) {
-    const float tx = tg[8 * s], ty = tg[8 * s + 1], tz = tg[8 * s + 2];
-    s_tab[s] = make_float4(-2.0f * tx, -2.0f * ty, -2.0f * tz,
-                           tx * tx + ty * ty + tz * tz + tg[8 * s + 7]);
-    s_plane[s] = make_float4(tg[8 * s + 3], tg[8 * s + 4], tg[8 * s + 5],
-                             tg[8 * s + 6]);
+  if (real) {
+    const float* tg = jb.tgt + (size_t)n * S * 8;
+    for (int s = tid; s < S; s += kThreads) {
+      const float tx = tg[8 * s], ty = tg[8 * s + 1], tz = tg[8 * s + 2];
+      s_tab[s] = make_float4(-2.0f * tx, -2.0f * ty, -2.0f * tz,
+                             tx * tx + ty * ty + tz * tz + tg[8 * s + 7]);
+      s_plane[s] = make_float4(tg[8 * s + 3], tg[8 * s + 4], tg[8 * s + 5],
+                               tg[8 * s + 6]);
+      if (M != kP2P) s_pt[s] = make_float4(tx, ty, tz, 0.0f);
+    }
   }
   if (tid == 0) {
     for (int i = 0; i < 12; ++i) {
@@ -196,94 +322,258 @@ __global__ void __launch_bounds__(kThreads) icp_fused_kernel(
     }
     st.best_rmse = __int_as_float(0x7f800000);
     st.streak = 0.0f;
-    st.done = 0.0f;
-    st.k = 0;
+    st.done = real ? 0.0f : 1.0f;
+    st.accum = 0.0f;
+    st.cen[0] = st.cen[1] = st.cen[2] = 0.0f;
+    st.ext = 0.0f;
   }
   __syncthreads();
 
-  const float* sp = src + (size_t)n * P * 3;
-  const float* sa = sadd + (size_t)n * P;
-  while (true) {
-    const int k = st.k;
-    if (k >= max_iterations) break;
+  const float* sp = jb.src + (size_t)n * P * 3;
+  const float* sn = jb.snrm + (size_t)n * P * 3;   // read in sym / exact only
+  const float* sa = jb.sadd + (size_t)n * P;
+  const int idx_mask = jb.idx_mask;
+  for (int k = 0;; ++k) {
+    bool assoc_now;
+    if constexpr (ADAPTIVE) {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (tid == 0) {
+        s_pub[0] = st.accum * (1.0f - st.done);
+        s_pub[1] = st.done;
+      }
+      cluster.sync();
+      if (tid == 0) {
+        float mx = 0.0f;
+        bool all_done = true;
+        for (int r = 0; r < kGroup; ++r) {
+          const float* pub = cluster.map_shared_rank(s_pub, r);
+          mx = r == 0 ? pub[0] : fmaxf(mx, pub[0]);
+          all_done = all_done && pub[1] > 0.5f;
+        }
+        st.stop = all_done || k >= jb.max_iterations;
+        st.need = k == 0 || mx > jb.assoc_trigger;
+        if (st.need) st.accum = 0.0f;
+      }
+      cluster.sync();
+      if (st.stop) break;
+      if (st.done > 0.5f) continue;
+      assoc_now = st.need;
+    } else {
+      if (st.done > 0.5f || k >= jb.max_iterations) break;
+      assoc_now = jb.nn_every <= 1 || (k % jb.nn_every) == 0;
+    }
     const float* c = st.cur;
     const float r00 = c[0], r01 = c[1], r02 = c[2];
     const float r10 = c[3], r11 = c[4], r12 = c[5];
     const float r20 = c[6], r21 = c[7], r22 = c[8];
     const float t0 = c[9], t1 = c[10], t2 = c[11];
-    const bool assoc_now = nn_every <= 1 || (k % nn_every) == 0;
 
-    float acc[kSums];
+    // Nearest target of the point at c: the plane (and point) of the packed
+    // (distance, index) winner and its quantised distance, into the cache.
+    auto associate = [&](int p, float cx, float cy, float cz) {
+      const float cc = cx * cx + cy * cy + cz * cz;
+      int pmin = 0x7fffffff;
+      for (int s = 0; s < S; ++s) {
+        const float4 tb = s_tab[s];
+        const float d =
+            fmaxf(tb.w + tb.x * cx + tb.y * cy + tb.z * cz + cc, 0.0f);
+        pmin = min(pmin, (__float_as_int(d) & ~idx_mask) | s);
+      }
+      const int win = pmin & idx_mask;
+      const float4 pl = s_plane[win];
+      s_assoc[p] = pl.x;
+      s_assoc[P + p] = pl.y;
+      s_assoc[2 * P + p] = pl.z;
+      s_assoc[3 * P + p] = pl.w;
+      s_assoc[4 * P + p] = __int_as_float(pmin & ~idx_mask);
+      if (M != kP2P) {
+        const float4 q = s_pt[win];
+        s_assoc[5 * P + p] = q.x;
+        s_assoc[6 * P + p] = q.y;
+        s_assoc[7 * P + p] = q.z;
+      }
+    };
+
+    // d2d modes, pass 1: association, weights and the correspondence
+    // centroid (pallas_icp.py:248-262).
+    float cenx = 0.0f, ceny = 0.0f, cenz = 0.0f;
+    if constexpr (M != kP2P) {
+      float acc4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int p = tid; p < P; p += kThreads) {
+        const float sx = sp[3 * p], sy = sp[3 * p + 1], sz = sp[3 * p + 2];
+        const float cx = r00 * sx + r01 * sy + r02 * sz + t0;
+        const float cy = r10 * sx + r11 * sy + r12 * sz + t1;
+        const float cz = r20 * sx + r21 * sy + r22 * sz + t2;
+        if (assoc_now) associate(p, cx, cy, cz);
+        const float w =
+            (s_assoc[4 * P + p] + sa[p]) <= jb.max_corr_sq ? 1.0f : 0.0f;
+        acc4[0] += w;
+        acc4[1] += cx * w;
+        acc4[2] += cy * w;
+        acc4[3] += cz * w;
+      }
+      block_sum<4>(acc4, s_red, s_sums);
+      const float inv_cnt = 1.0f / fmaxf(s_sums[0], 1.0f);
+      cenx = s_sums[1] * inv_cnt;
+      ceny = s_sums[2] * inv_cnt;
+      cenz = s_sums[3] * inv_cnt;
+      __syncthreads();   // s_sums is reused below
+    }
+
+    float acc[NS];
 #pragma unroll
-    for (int q = 0; q < kSums; ++q) acc[q] = 0.0f;
+    for (int q = 0; q < NS; ++q) acc[q] = 0.0f;
+    float ext2 = 0.0f;
     for (int p = tid; p < P; p += kThreads) {
       const float sx = sp[3 * p], sy = sp[3 * p + 1], sz = sp[3 * p + 2];
       const float cx = r00 * sx + r01 * sy + r02 * sz + t0;
       const float cy = r10 * sx + r11 * sy + r12 * sz + t1;
       const float cz = r20 * sx + r21 * sy + r22 * sz + t2;
-      float nx, ny, nz, nq, dmin;
-      if (assoc_now) {
-        const float cc = cx * cx + cy * cy + cz * cz;
-        int pmin = 0x7fffffff;
-        for (int s = 0; s < S; ++s) {
-          const float4 tb = s_tab[s];
-          const float d = fmaxf(tb.w + tb.x * cx + tb.y * cy + tb.z * cz + cc,
-                                0.0f);
-          pmin = min(pmin, (__float_as_int(d) & ~idx_mask) | s);
+      if (M == kP2P && assoc_now) associate(p, cx, cy, cz);
+      const float nx = s_assoc[p];
+      const float ny = s_assoc[P + p];
+      const float nz = s_assoc[2 * P + p];
+      const float nq = s_assoc[3 * P + p];
+      const float dmin = s_assoc[4 * P + p];
+      const float w = (dmin + sa[p]) <= jb.max_corr_sq ? 1.0f : 0.0f;
+      const float ax = cx - cenx, ay = cy - ceny, az = cz - cenz;
+      if (ADAPTIVE) ext2 = fmaxf(ext2, ax * ax + ay * ay + az * az);
+      float rx = 0.0f, ry = 0.0f, rz = 0.0f;
+      float nsx = 0.0f, nsy = 0.0f, nsz = 0.0f;
+      if (M != kP2P) {
+        rx = cx - s_assoc[5 * P + p];
+        ry = cy - s_assoc[6 * P + p];
+        rz = cz - s_assoc[7 * P + p];
+      }
+      if (M == kSym || M == kExact) {
+        const float snx = sn[3 * p], sny = sn[3 * p + 1], snz = sn[3 * p + 2];
+        nsx = r00 * snx + r01 * sny + r02 * snz;
+        nsy = r10 * snx + r11 * sny + r12 * snz;
+        nsz = r20 * snx + r21 * sny + r22 * snz;
+      }
+      if constexpr (M == kExact) {
+        // Full-covariance weight M = w inv(C), C = 2I - (1-eps)(nt nt^T +
+        // ns' ns'^T), by the symmetric adjugate (pallas_icp.py:268-330).
+        const float ome = jb.ome;
+        const float c00 = 2.0f - ome * (nx * nx + nsx * nsx);
+        const float c01 = -ome * (nx * ny + nsx * nsy);
+        const float c02 = -ome * (nx * nz + nsx * nsz);
+        const float c11 = 2.0f - ome * (ny * ny + nsy * nsy);
+        const float c12 = -ome * (ny * nz + nsy * nsz);
+        const float c22 = 2.0f - ome * (nz * nz + nsz * nsz);
+        const float co00 = c11 * c22 - c12 * c12;
+        const float co01 = c02 * c12 - c01 * c22;
+        const float co02 = c01 * c12 - c02 * c11;
+        const float co11 = c00 * c22 - c02 * c02;
+        const float co12 = c01 * c02 - c00 * c12;
+        const float co22 = c00 * c11 - c01 * c01;
+        const float det = c00 * co00 + c01 * co01 + c02 * co02;
+        const float invd = w / fmaxf(det, 1e-20f);
+        const float m00 = co00 * invd, m01 = co01 * invd, m02 = co02 * invd;
+        const float m11 = co11 * invd, m12 = co12 * invd, m22 = co22 * invd;
+        // u_j = M col_j for the jacobian columns J = [-[a]x | I].
+        const float us[6][3] = {
+            {-az * m01 + ay * m02, -az * m11 + ay * m12, -az * m12 + ay * m22},
+            {az * m00 - ax * m02, az * m01 - ax * m12, az * m02 - ax * m22},
+            {-ay * m00 + ax * m01, -ay * m01 + ax * m11, -ay * m02 + ax * m12},
+            {m00, m01, m02},
+            {m01, m11, m12},
+            {m02, m12, m22}};
+        auto dot_col = [&](int i, float vx, float vy, float vz) {
+          if (i == 0) return -az * vy + ay * vz;
+          if (i == 1) return az * vx - ax * vz;
+          if (i == 2) return -ay * vx + ax * vy;
+          return i == 3 ? vx : (i == 4 ? vy : vz);
+        };
+        int q = 0;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+#pragma unroll
+          for (int j = i; j < 6; ++j) {
+            acc[q++] += dot_col(i, us[j][0], us[j][1], us[j][2]);
+          }
         }
-        const float4 pl = s_plane[pmin & idx_mask];
-        nx = pl.x;
-        ny = pl.y;
-        nz = pl.z;
-        nq = pl.w;
-        dmin = __int_as_float(pmin & ~idx_mask);
-        s_assoc[p] = nx;
-        s_assoc[P + p] = ny;
-        s_assoc[2 * P + p] = nz;
-        s_assoc[3 * P + p] = nq;
-        s_assoc[4 * P + p] = dmin;
+        const float wrx = m00 * rx + m01 * ry + m02 * rz;
+        const float wry = m01 * rx + m11 * ry + m12 * rz;
+        const float wrz = m02 * rx + m12 * ry + m22 * rz;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) acc[21 + i] += dot_col(i, wrx, wry, wrz);
+        acc[27] += w;
+        const float res2 = rx * wrx + ry * wry + rz * wrz;
+        acc[28] += res2 * w;
       } else {
-        nx = s_assoc[p];
-        ny = s_assoc[P + p];
-        nz = s_assoc[2 * P + p];
-        nq = s_assoc[3 * P + p];
-        dmin = s_assoc[4 * P + p];
+        const float e = nx * cx + ny * cy + nz * cz - nq;
+        const float js[6] = {ay * nz - az * ny, az * nx - ax * nz,
+                             ax * ny - ay * nx, nx, ny, nz};
+        int q = 0;
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+#pragma unroll
+          for (int j = i; j < 6; ++j) acc[q++] += js[i] * js[j] * w;
+        }
+#pragma unroll
+        for (int i = 0; i < 6; ++i) acc[21 + i] += js[i] * e * w;
+        acc[27] += w;
+        float res2 = e * e;
+        if constexpr (M == kD2D || M == kSym) {
+          acc[29] += ax * ax * w;
+          acc[30] += ay * ay * w;
+          acc[31] += az * az * w;
+          acc[32] += ax * ay * w;
+          acc[33] += ax * az * w;
+          acc[34] += ay * az * w;
+          acc[35] += ax * w;
+          acc[36] += ay * w;
+          acc[37] += az * w;
+          acc[38] += (ay * rz - az * ry) * w;
+          acc[39] += (az * rx - ax * rz) * w;
+          acc[40] += (ax * ry - ay * rx) * w;
+          acc[41] += rx * w;
+          acc[42] += ry * w;
+          acc[43] += rz * w;
+          res2 = res2 + jb.wpp * (rx * rx + ry * ry + rz * rz);
+          if constexpr (M == kSym) {
+            const float e2 = nsx * rx + nsy * ry + nsz * rz;
+            const float ks[6] = {ay * nsz - az * nsy, az * nsx - ax * nsz,
+                                 ax * nsy - ay * nsx, nsx, nsy, nsz};
+            int qs = 44;
+#pragma unroll
+            for (int i = 0; i < 6; ++i) {
+#pragma unroll
+              for (int j = i; j < 6; ++j) acc[qs++] += ks[i] * ks[j] * w;
+            }
+#pragma unroll
+            for (int i = 0; i < 6; ++i) acc[65 + i] += ks[i] * e2 * w;
+            res2 = res2 + e2 * e2;
+          }
+        }
+        acc[28] += res2 * w;
       }
-      const float w = (dmin + sa[p]) <= max_corr_sq ? 1.0f : 0.0f;
-      const float e = nx * cx + ny * cy + nz * cz - nq;
-      const float js[6] = {cy * nz - cz * ny, cz * nx - cx * nz,
-                           cx * ny - cy * nx, nx, ny, nz};
-      int q = 0;
+    }
+    block_sum<NS>(acc, s_red, s_sums);
+    if (ADAPTIVE) {
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
-#pragma unroll
-        for (int j = i; j < 6; ++j) acc[q++] += js[i] * js[j] * w;
+      for (int off = 16; off > 0; off >>= 1) {
+        ext2 = fmaxf(ext2, __shfl_down_sync(0xffffffffu, ext2, off));
       }
-#pragma unroll
-      for (int i = 0; i < 6; ++i) acc[21 + i] += js[i] * e * w;
-      acc[27] += w;
-      acc[28] += e * e * w;
+      if (lane == 0) s_ext[warp] = ext2;
+      __syncthreads();
     }
-#pragma unroll
-    for (int q = 0; q < kSums; ++q) {
-      const float v = warp_sum(acc[q]);
-      if (lane == 0) s_red[warp][q] = v;
-    }
-    __syncthreads();
-    if (tid < kSums) {
-      float v = s_red[0][tid];
-      for (int w = 1; w < kWarps; ++w) v += s_red[w][tid];
-      s_sums[tid] = v;
-    }
-    __syncthreads();
     if (tid == 0) {
-      solve_and_update(s_sums, st, max_iterations, damping, rot_eps_sq,
-                       trn_eps_sq, stagnation_streak);
+      if (ADAPTIVE) {
+        float m = s_ext[0];
+        for (int w = 1; w < kWarps; ++w) m = fmaxf(m, s_ext[w]);
+        st.ext = sqrtf(m);
+      }
+      st.cen[0] = cenx;
+      st.cen[1] = ceny;
+      st.cen[2] = cenz;
+      solve_and_update<M, ADAPTIVE>(s_sums, st, jb);
     }
     __syncthreads();
   }
 
-  if (tid < 16) {
+  if (real && tid < 16) {
     const int r = tid / 4, col = tid % 4;
     float v;
     if (r == 3) {
@@ -291,27 +581,67 @@ __global__ void __launch_bounds__(kThreads) icp_fused_kernel(
     } else {
       v = col == 3 ? st.best[9 + r] : st.best[3 * r + col];
     }
-    out[(size_t)n * 16 + tid] = v;
+    jb.out[(size_t)n * 16 + tid] = v;
   }
+}
+
+template <int M, bool ADAPTIVE>
+int run(const Job& jb, cudaStream_t stream) {
+  auto kernel = icp_fused_kernel<M, ADAPTIVE>;
+  const size_t smem = (size_t)jb.S * (M == kP2P ? 2 : 3) * sizeof(float4) +
+                      (size_t)jb.P * CacheRows<M>::value * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!ADAPTIVE) {
+    kernel<<<jb.N, kThreads, smem, stream>>>(jb);
+    return (int)cudaGetLastError();
+  }
+  // One cluster of 8 blocks per pose group; the grid rounds N up to 8.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((jb.N + kGroup - 1) / kGroup * kGroup);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kGroup;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, jb);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int pt_icp_fused(const float* src, const float* sadd,
-                            const float* tgt, int N, int P, int S,
-                            int max_iterations, float max_corr_sq,
-                            float damping, int nn_every, float rot_eps_sq,
-                            float trn_eps_sq, float stagnation_streak,
-                            int idx_mask, float* out, void* stream) {
+// mode: 0 p2p, 1 d2d, 2 sym, 3 exact; nn_every = 0 selects adaptive
+// association. snrm may be null unless mode is 2 or 3.
+extern "C" int pt_icp_fused(const float* src, const float* snrm,
+                            const float* sadd, const float* tgt, int N, int P,
+                            int S, int mode, int max_iterations,
+                            float max_corr_sq, float damping, int nn_every,
+                            float rot_eps_sq, float trn_eps_sq,
+                            float stagnation_streak, int idx_mask, float wpp,
+                            float ome, float damp1, float assoc_trigger,
+                            float* out, void* stream) {
   if (N == 0) return 0;
-  const size_t smem = (size_t)S * 2 * sizeof(float4) + (size_t)P * 5 * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        icp_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  const Job jb = {src, snrm, sadd, tgt, out, N, P, S, max_iterations,
+                  nn_every, idx_mask, max_corr_sq, damping, rot_eps_sq,
+                  trn_eps_sq, stagnation_streak, wpp, ome, damp1,
+                  assoc_trigger};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool adaptive = nn_every == 0;
+  switch (mode) {
+    case kP2P: return adaptive ? run<kP2P, true>(jb, st) : run<kP2P, false>(jb, st);
+    case kD2D: return adaptive ? run<kD2D, true>(jb, st) : run<kD2D, false>(jb, st);
+    case kSym: return adaptive ? run<kSym, true>(jb, st) : run<kSym, false>(jb, st);
+    case kExact:
+      return adaptive ? run<kExact, true>(jb, st) : run<kExact, false>(jb, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  icp_fused_kernel<<<N, kThreads, smem, (cudaStream_t)stream>>>(
-      src, sadd, tgt, P, S, max_iterations, max_corr_sq, damping, nn_every,
-      rot_eps_sq, trn_eps_sq, stagnation_streak, idx_mask, out);
-  return (int)cudaGetLastError();
 }

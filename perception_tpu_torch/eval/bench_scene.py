@@ -2,8 +2,9 @@
 
 The same scene as `benchmarks/bench_scene.py:build_bench_problem` from the
 same seed: four blob models (the bank padded to t_cap), three ground-truth
-objects rendered at 640x480 as the observation, and n_poses candidates that
-perturb the ground truth by 2 cm / 0.15 rad. Settings come as arguments (the
+objects rendered at 640x480 as the observation (degraded by a sensor model
+when one is named), and n_poses candidates that perturb the ground truth by
+2 cm / 0.15 rad. Settings come as arguments (the
 JAX version reads BENCH_* / PT_* environment variables; their defaults are
 the values used here). `convex_blob` and `bumpy_blob` are this module's own
 copies of the JAX benchmark's model generators.
@@ -32,6 +33,7 @@ from perception_tpu_torch.core.pose import (
     matrix_to_quat,
 )
 from perception_tpu_torch.core.state import ObjectState
+from perception_tpu_torch.eval.sensor_model import by_name
 from perception_tpu_torch.pipeline.env import PerceptionEnv
 from perception_tpu_torch.pipeline.scorer import (
     PoseScores,
@@ -47,16 +49,30 @@ class BenchProblem:
     gt: list[ObjectState]         # the three scene objects (label i + 1)
     args: tuple                   # score_pose_batch positional inputs
     cfg: ScorerConfig
+    sensor: str = "none"          # eval.sensor_model name of the observation
+    seed: int = 0
 
-    def score(self, n: int | None = None) -> PoseScores:
-        """Score the first n candidates (all by default) in one batch."""
+    def observe(self, env: PerceptionEnv) -> None:
+        """Give `env` this problem's observation: the ground truth rendered,
+        degraded by the sensor model with the JAX benchmark's rng."""
+        if self.sensor in ("none", "off", ""):
+            env.set_observation_from_states(self.gt)
+        else:
+            env.set_observation_from_states(
+                self.gt, sensor=by_name(self.sensor),
+                rng=np.random.default_rng((self.seed, 0xC0FFEE)))
+
+    def score(self, n: int | None = None,
+              cfg: ScorerConfig | None = None) -> PoseScores:
+        """Score the first n candidates (all by default) in one batch, with
+        this problem's configuration or `cfg`."""
         env = self.env
         (verts, colors, valid, poses, ids, labels, totals, proj,
          scene) = self.args
         sl = slice(None, n)
         return score_pose_batch(
             verts, colors, valid, poses[sl], ids[sl], labels[sl], totals[sl],
-            proj, scene, self.cfg, bank_backface=env._render_bank[3],
+            proj, scene, cfg or self.cfg, bank_backface=env._render_bank[3],
             bank_icp_samples=env._bank_icp_samples,
             bank_icp_normals=env._bank_icp_normals,
             bank_tri_lab=env._render_bank_lab)
@@ -112,11 +128,14 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
                         width: int = 640, height: int = 480, stride: int = 8,
                         seed: int = 0, model_kind: str = "blob",
                         use_color: bool = False, roi_size: int = 32,
+                        icp_mode: str = "auto", sensor: str = "none",
                         device: str | torch.device = "cuda") -> BenchProblem:
     """model_kind: "blob" (convex hulls) or "bumpy1024" (~t_cap-triangle
     non-convex models), as BENCH_MODELS selects for the JAX version;
     use_color: the CIEDE2000-gated cost (PT_USE_COLOR); roi_size: the
-    strided ROI side, 0 for the full frame."""
+    strided ROI side, 0 for the full frame; icp_mode: the EnvConfig ICP mode
+    (PT_ICP_MODE; "fused_d2d_exact" is the real-sensor profile); sensor: the
+    eval.sensor_model degrading the observation (PT_SENSOR, e.g. "kinect")."""
     rng = np.random.default_rng(seed)
     cam = CameraIntrinsics(fx=1066.778, fy=1067.487, cx=312.9869,
                            cy=241.3109, width=width, height=height)
@@ -140,7 +159,7 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
                         max_observed_points=8192, max_points_per_label=1024,
                         max_labels=4, roi_size=roi_size,
                         kernel_backend="auto",
-                        icp_mode="auto")
+                        icp_mode=icp_mode)
     env = PerceptionEnv(bank, cam, perch, env_cfg, device=device)
 
     gt = []
@@ -150,7 +169,9 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
             *matrix_to_quat(euler_xyz_to_matrix(*rng.uniform(-1.5, 1.5, 3))))
         gt.append(ObjectState(id=i, symmetric=False, pose=pose,
                               segmentation_label_id=i + 1))
-    env.set_observation_from_states(gt)
+    problem = BenchProblem(env=env, candidates=[], gt=gt, args=(), cfg=None,
+                           sensor=sensor, seed=seed)
+    problem.observe(env)
 
     cands = []
     for k in range(n_poses):
@@ -173,4 +194,4 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
     rb_verts, rb_colors, rb_valid, _ = env._render_bank
     args = (rb_verts, rb_colors, rb_valid, dev(poses), dev(ids), dev(labels),
             dev(seg_count[labels]), env._proj, env._scene)
-    return BenchProblem(env=env, candidates=cands, gt=gt, args=args, cfg=cfg)
+    return dataclasses.replace(problem, candidates=cands, args=args, cfg=cfg)

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("raster_direct.cu", "icp_fused.cu", "cost_fused.cu",
-           "cost_fused_color.cu")
+           "cost_fused_color.cu", "knn.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "perception_tpu_torch"
 # --fmad=false: no contraction of a*b+c into FMAs, so each kernel rounds
 # exactly where its PyTorch twin does (the raster keys and the ICP
@@ -47,12 +47,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pt_raster_direct": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                          _P),
-    "pt_icp_fused": (_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _F, _F, _F, _I,
-                     _P, _P),
+    "pt_icp_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _F, _F,
+                     _F, _I, _F, _F, _F, _F, _P, _P),
     "pt_cost_fused": (_P, _P, _P, _I, _I, _I, _F, _P, _P),
     "pt_cost_fused_color": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P),
     "pt_cost_fused_color_tri": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _F, _F, _P, _P),
+    "pt_nn1_batch": (_P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -150,8 +151,9 @@ def launch(name: str, *args) -> None:
     LAUNCHES[name.removeprefix("pt_")] += 1
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device address (NULL for None)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

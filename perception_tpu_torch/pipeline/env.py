@@ -33,6 +33,7 @@ from perception_tpu_torch.core.config import (
 from perception_tpu_torch.core.mesh import ModelBank
 from perception_tpu_torch.core.pose import CAM_TO_BODY, ContPose
 from perception_tpu_torch.core.state import GraphState, ObjectState
+from perception_tpu_torch.eval.sensor_model import SensorModel
 from perception_tpu_torch.ops.color import rgb_to_lab
 from perception_tpu_torch.ops.cost import COST_TYPE_6DOF, COST_TYPE_6DOF_RGB
 from perception_tpu_torch.ops.icp import cloud_normals
@@ -185,12 +186,18 @@ class PerceptionEnv:
             self._seg_kdtrees.append(cKDTree(seg) if len(seg) else None)
         self.stats.input_time = time.perf_counter() - t0
 
-    def set_observation_from_states(self, states: Sequence[ObjectState]
-                                    ) -> None:
+    def set_observation_from_states(self, states: Sequence[ObjectState],
+                                    rng: np.random.Generator | None = None,
+                                    sensor: SensorModel | None = None) -> None:
         """Simulated ground-truth input: render the given scene state and use
-        it as the observation (no sensor model)."""
+        it as the observation. `sensor` degrades the rendered depth and
+        colour with draws from `rng` (default seed 0) as a physical camera
+        would; dropped pixels keep their instance label."""
         depth, color, label = self.render_composite(states)
         depth_m = depth.astype(np.float64) / self.env.gpu_depth_factor
+        if sensor is not None:
+            rng = rng or np.random.default_rng(0)
+            depth_m, color = sensor.apply(depth_m, color, rng)
         self.set_input(RecognitionInput(
             depth_image=depth_m * 100.0, color_image=color, label_mask=label,
             depth_factor=100.0, cam_to_world=CAM_TO_BODY.copy(),

@@ -1,12 +1,17 @@
-"""Candidate-pose scoring: render -> cloud -> fused ICP -> fused cost.
+"""Candidate-pose scoring: render -> cloud -> ICP -> fused cost.
 
 Counterpart of `perception_tpu/pipeline/scorer.py` for the greedy 6-DoF
 configuration:
 
     direct raster (ROI or full frame) + occlusion pass
       -> depth_to_cloud_roi / depth_to_cloud_batch
-      -> label-shared "near" target crop + pack_targets
-      -> fused point-to-plane ICP on the downsampled cloud
+      -> ICP on the downsampled cloud, by `icp_mode`:
+           "fused" / "fused_d2d" / "fused_d2d_exact": label-shared "near"
+             target crop + pack_targets, the fused ICP kernel in point-to-
+             plane, d2d (symmetric with icp_d2d_symmetric) or exact mode,
+             with source normals for sym and exact;
+           "nn" / "gicp": the composed refiners against the pose's segment
+             with a per-pose "near" crop, 1-NN association every iteration;
       -> the cloud moved by the ICP delta, plus explain-only surface samples
       -> fused cost, depth only or colour-gated (CIEDE2000) -> total cost.
 
@@ -26,7 +31,13 @@ import dataclasses
 import torch
 
 from perception_tpu_torch.ops.cost import COST_TYPE_6DOF, compute_costs_fused
-from perception_tpu_torch.ops.icp import crop_targets
+from perception_tpu_torch.ops.icp import (
+    cloud_normals,
+    crop_targets,
+    icp_gicp_batch,
+    icp_point_to_plane_batch,
+    rotate_points,
+)
 from perception_tpu_torch.ops.icp_fused import icp_fused, pack_targets
 from perception_tpu_torch.ops.pointcloud import (
     depth_to_cloud_batch,
@@ -99,6 +110,17 @@ class ScorerConfig:
     use_clutter_mode: bool = False
     clutter_regularizer: float = 0.1
 
+    def d2d_epsilons(self) -> tuple[float, float]:
+        """Step-norm thresholds for the D2D solvers (gicp / fused_d2d)."""
+        rot = self.icp_d2d_rotation_epsilon
+        trn = self.icp_d2d_transformation_epsilon
+        return (rot if rot is not None else self.icp_rotation_epsilon * 0.1,
+                trn if trn is not None
+                else self.icp_transformation_epsilon * 0.1)
+
+
+ICP_MODES = ("fused", "fused_d2d", "fused_d2d_exact", "nn", "gicp")
+
 
 @dataclasses.dataclass
 class PoseScores:
@@ -123,8 +145,10 @@ def _check_config(cfg: ScorerConfig) -> None:
     if cfg.use_tree_occlusion:
         raise _unported("use_tree_occlusion")
     if cfg.do_icp:
-        if cfg.icp_mode != "fused":
-            raise _unported(f"icp_mode={cfg.icp_mode!r}")
+        if cfg.icp_mode == "projective":
+            raise _unported("icp_mode='projective' (organised map tensors)")
+        if cfg.icp_mode not in ICP_MODES:
+            raise ValueError(f"unknown icp_mode {cfg.icp_mode!r}")
         if cfg.icp_source != "render":
             raise _unported(f"icp_source={cfg.icp_source!r}")
         if cfg.icp_render_scale > 1:
@@ -155,16 +179,9 @@ def _render_and_cloud(bank_tri_verts, bank_tri_colors, bank_tri_valid, poses,
     return out, cloud
 
 
-def _rotate(rot: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """rot [N, 3, 3] applied to pts [N, K, 3]. Element-wise products summed
-    in a fixed order (not a matmul), so the CPU and the card round alike."""
-    r = rot[:, None]
-    return (pts[..., 0:1] * r[..., 0] + pts[..., 1:2] * r[..., 1]
-            + pts[..., 2:3] * r[..., 2])
-
-
 def _compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for [N, 4, 4] transforms, summed in a fixed order as _rotate."""
+    """a @ b for [N, 4, 4] transforms, summed in a fixed order as
+    rotate_points."""
     return (a[:, :, 0:1] * b[:, 0:1] + a[:, :, 1:2] * b[:, 1:2]
             + a[:, :, 2:3] * b[:, 2:3] + a[:, :, 3:4] * b[:, 3:4])
 
@@ -197,6 +214,50 @@ def _icp_targets(scene: ObservedScene, labels: torch.Tensor,
     cidx = crop_targets(scene.seg_xyz, valid, segc, k, mode=cfg.icp_crop_mode)
     cropped = torch.gather(seg_pk, 1, cidx[..., None].expand(-1, -1, 8))
     return cropped[labels]
+
+
+def _refine(src_xyz: torch.Tensor, src_valid: torch.Tensor,
+            scene: ObservedScene, labels: torch.Tensor,
+            cfg: ScorerConfig) -> torch.Tensor:
+    """ICP deltas [N, 4, 4] by cfg.icp_mode, as the JAX scorer dispatches."""
+    if cfg.icp_mode in ("nn", "gicp"):
+        tgt = (scene.seg_xyz[labels], scene.seg_valid[labels],
+               scene.seg_normals[labels])
+        common = dict(max_iterations=cfg.icp_max_iterations,
+                      max_correspondence=cfg.icp_max_correspondence,
+                      crop_k=cfg.icp_crop_targets)
+        if cfg.icp_mode == "nn":
+            return icp_point_to_plane_batch(
+                src_xyz, src_valid, *tgt,
+                rotation_epsilon=cfg.icp_rotation_epsilon,
+                transformation_epsilon=cfg.icp_transformation_epsilon,
+                **common).delta
+        rot_eps, trn_eps = cfg.d2d_epsilons()
+        return icp_gicp_batch(
+            src_xyz, src_valid, cloud_normals(src_xyz, src_valid), *tgt,
+            rotation_epsilon=rot_eps, transformation_epsilon=trn_eps,
+            gicp_epsilon=cfg.icp_gicp_epsilon, **common).delta
+    exact = cfg.icp_mode == "fused_d2d_exact"
+    d2d = cfg.icp_mode != "fused"
+    src_nrm = None
+    if exact or (d2d and cfg.icp_d2d_symmetric):
+        # Source covariances from k-NN normals of the rendered cloud, as
+        # fast_gicp estimates them.
+        src_nrm = cloud_normals(src_xyz, src_valid)
+    if d2d:
+        rot_eps, trn_eps = cfg.d2d_epsilons()
+    else:
+        rot_eps = cfg.icp_rotation_epsilon
+        trn_eps = cfg.icp_transformation_epsilon
+    return icp_fused(
+        src_xyz, src_valid, _icp_targets(scene, labels, cfg), src_nrm,
+        max_iterations=cfg.icp_max_iterations,
+        max_correspondence=cfg.icp_max_correspondence,
+        nn_every=cfg.icp_exact_nn_every if exact else cfg.icp_nn_every,
+        rotation_epsilon=rot_eps, transformation_epsilon=trn_eps,
+        stagnation_streak=cfg.icp_stagnation_streak,
+        d2d_epsilon=cfg.icp_gicp_epsilon if d2d else 0.0, exact=exact,
+        assoc_trigger=cfg.icp_assoc_trigger)
 
 
 def score_pose_batch(
@@ -254,18 +315,12 @@ def score_pose_batch(
     cloud_xyz, cloud_valid = cloud.xyz, cloud.valid
     if cfg.do_icp:
         ds = cfg.icp_downsample
-        delta = icp_fused(
-            cloud.xyz[:, ::ds], cloud.valid[:, ::ds],
-            _icp_targets(scene, labels, cfg),
-            max_iterations=cfg.icp_max_iterations,
-            max_correspondence=cfg.icp_max_correspondence,
-            nn_every=cfg.icp_nn_every,
-            rotation_epsilon=cfg.icp_rotation_epsilon,
-            transformation_epsilon=cfg.icp_transformation_epsilon,
-            stagnation_streak=cfg.icp_stagnation_streak)
+        delta = _refine(cloud.xyz[:, ::ds], cloud.valid[:, ::ds], scene,
+                        labels, cfg)
         adjusted = _compose(delta, poses)
         # The cost cloud is the first-pass cloud moved rigidly by the delta.
-        moved = _rotate(delta[:, :3, :3], cloud.xyz) + delta[:, None, :3, 3]
+        moved = (rotate_points(delta[:, :3, :3], cloud.xyz)
+                 + delta[:, None, :3, 3])
         cloud_xyz = torch.where(cloud.valid[..., None], moved, cloud.xyz)
         if bank_icp_samples is not None:
             # Explain-only front-hemisphere surface samples at the adjusted
@@ -277,8 +332,8 @@ def score_pose_batch(
                 step = -(-samp.shape[1] // cfg.cost_aug_samples)
                 samp, snrm = samp[:, ::step], snrm[:, ::step]
             rot = adjusted[:, :3, :3]
-            aug_xyz = _rotate(rot, samp) + adjusted[:, None, :3, 3]
-            n_cam = _rotate(rot, snrm)
+            aug_xyz = rotate_points(rot, samp) + adjusted[:, None, :3, 3]
+            n_cam = rotate_points(rot, snrm)
             aug_valid = (n_cam[..., 0] * aug_xyz[..., 0]
                          + n_cam[..., 1] * aug_xyz[..., 1]
                          + n_cam[..., 2] * aug_xyz[..., 2]) < 0.0

@@ -23,7 +23,6 @@ from pathlib import Path
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
 
 from perception_tpu.core.pose import ContPose
 from perception_tpu.core.state import ObjectState
@@ -200,9 +199,7 @@ def test_cpu_calls_run_the_twins():
 
 
 @pytest.mark.parametrize("change", [
-    dict(icp_mode="nn"), dict(icp_mode="projective"), dict(icp_mode="gicp"),
-    dict(icp_mode="fused_d2d"), dict(icp_mode="fused_d2d_exact"),
-    dict(icp_nn_every=0), dict(icp_source="model"),
+    dict(icp_mode="projective"), dict(icp_source="model"),
     dict(cost_cloud="render"), dict(icp_render_scale=2),
     dict(use_tree_occlusion=True), dict(backend="xla"),
     dict(icp_crop_share="pose"), dict(icp_crop_mode="spread"),
@@ -212,18 +209,6 @@ def test_unported_scorer_branches_raise(change):
     with pytest.raises(NotImplementedError):
         pscorer.score_pose_batch(*args, dataclasses.replace(cfg, **change),
                                  **kw)
-
-
-def test_unported_kernel_modes_raise():
-    from perception_tpu_torch.ops.icp_fused import icp_fused
-
-    src = torch.zeros((1, 8, 3))
-    valid = torch.ones((1, 8), dtype=torch.bool)
-    tgt = torch.zeros((1, 8, 8))
-    for kw in (dict(src_normals=src), dict(d2d_epsilon=0.05),
-               dict(exact=True), dict(nn_every=0)):
-        with pytest.raises(NotImplementedError):
-            icp_fused(src, valid, tgt, **kw)
 
 
 def test_color_score_pose_batch_bench_problem_matches_jax(monkeypatch):
