@@ -8,26 +8,31 @@ Run from the repository root on a machine with an NVIDIA GPU:
 It builds the hand-written kernels from `perception_tpu_torch/csrc/`, holds
 each against its plain PyTorch twin on the card at the shapes of the scoring
 benchmark (bumpy1024 models, 2048 poses; the depth-only and the colour-gated
-cost, ROI 32 and full frame; the real-sensor profile on a Kinect-degraded
+cost, ROI 32 and full frame; the three rasters of `kernel_backend` "auto",
+"pallas" and "pallas_bin" at the depth ROI and colour full-frame batches,
+with an A/B of their times; the real-sensor profile on a Kinect-degraded
 observation with the fused ICP in its exact, d2d, symmetric and adaptive
 modes; the composed "nn" and "gicp" refiners with the 1-NN kernel), scores
-the batches on the card and again on the CPU twins, and serves /localize
+the batches on the card and again on the CPU twins, serves /localize
 requests through the port's HTTP service on five paths (depth ROI, colour
-ROI, colour full frame, real-sensor profile, gicp), checking the detections
-against the ground truth. It traces one depth, noisy and gicp batch with
-torch.profiler (device busy time, top ops). The launch counts are set to 0
-just before each served path or scored batch and read just after it. Every
-phase prints one JSON
-line; the run ends with a {"kernels": [...]} line, the card's `nvidia-smi`
-name and power limit, and {"ok": true, "device": {...}}. Any failed check
-raises and the exit code is non-zero. There is no CPU fallback: without a
-CUDA device the script exits with code 2 and prints nothing on stdout.
+ROI, colour full frame, real-sensor profile, gicp), and runs the `localize`
+CLI on the bench scene written as files (PLY models, PNG images, poses.txt,
+a JSON config) with kernel_backend "pallas_bin" and "pallas", checking the
+detections against the ground truth. Last, it traces one depth, noisy and
+gicp batch with torch.profiler (device busy time, top ops). The launch
+counts are set to 0 just before each served path or scored batch and read
+just after it. Every phase prints one JSON line; the run ends with a {"kernels": [...]}
+line, the card's `nvidia-smi` name and power limit, and {"ok": true,
+"device": {...}}. Any failed check raises and the exit code is non-zero.
+There is no CPU fallback: without a CUDA device the script exits with code 2
+and prints nothing on stdout.
 
 `bound_ms` is the least time the H100 could take for a kernel's work: the
 larger of its float32 operations over 67 TFLOP/s and its bytes (each input
 read once, each output written once) over 3.35 TB/s. Operations per element
 are counted from the kernels' sources (the *_OPS constants below); the
-raster counts the pixels inside each drawn triangle's screen bounding box,
+rasters count the pixels inside each drawn triangle's screen bounding box
+(the coefficient-table raster without the setup, which it does not run),
 ICP the iterations and association sweeps each pose of this run ran, the
 colour gate the points of this run that reach it.
 """
@@ -36,18 +41,24 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from perception_tpu_torch.eval.bench_scene import build_bench_problem
+from perception_tpu_torch import cli
+from perception_tpu_torch.eval.bench_scene import bench_meshes, build_bench_problem
+from perception_tpu_torch.io.images import write_png
 from perception_tpu_torch.kernels import build
 from perception_tpu_torch.ops import (
     cost,
@@ -55,7 +66,10 @@ from perception_tpu_torch.ops import (
     cost_fused_color,
     icp_fused,
     knn,
+    raster_bin,
     raster_direct,
+    raster_keys,
+    rasterizer,
 )
 from perception_tpu_torch.ops import icp as icp_ops
 from perception_tpu_torch.pipeline import scorer
@@ -95,6 +109,16 @@ KERNELS = {
         raster_direct.rasterize_direct_twin,
         "perception_tpu_torch/csrc/raster_direct.cu",
         "perception_tpu/ops/pallas_raster_direct.py:320"),
+    "raster_keys": Kernel(
+        raster_keys.prepare_inputs, raster_keys.launch_kernel,
+        raster_keys.rasterize_keys_twin,
+        "perception_tpu_torch/csrc/raster_keys.cu",
+        "perception_tpu/ops/pallas_raster.py:115"),
+    "raster_bin": Kernel(
+        raster_bin.prepare_inputs, raster_bin.launch_kernel,
+        raster_bin.rasterize_bin_twin,
+        "perception_tpu_torch/csrc/raster_bin.cu",
+        "perception_tpu/ops/pallas_raster_bin.py:306"),
     "icp_fused": Kernel(
         icp_fused.prepare_inputs, icp_fused.launch_kernel,
         icp_fused.icp_fused_twin, "perception_tpu_torch/csrc/icp_fused.cu",
@@ -123,6 +147,8 @@ KERNELS = {
 # The wrapper each kernel is recorded at: (module, attribute).
 SITES = {
     "raster_direct": (raster_direct, "rasterize_direct"),
+    "raster_keys": (raster_keys, "rasterize_keys"),
+    "raster_bin": (raster_bin, "rasterize_bin"),
     "icp_fused": (scorer, "icp_fused"),
     "cost_fused": (cost, "nn_cost_fused"),
     "cost_fused_color": (cost, "nn_cost_fused_color"),
@@ -131,6 +157,10 @@ SITES = {
 }
 ICP_MODES = ("exact", "d2d", "sym", "adaptive")   # beside p2p (depth batch)
 DEPTH = ("raster_direct", "icp_fused", "cost_fused")
+# kernel_backend -> its raster kernel.
+RASTERS = {"auto": "raster_direct", "pallas": "raster_keys",
+           "pallas_bin": "raster_bin"}
+REPO = Path(__file__).resolve().parent
 
 
 def emit(obj: dict) -> None:
@@ -195,12 +225,28 @@ def nbytes(tensors) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def box_pairs(xmin, xmax, ymin, ymax, drawable, anchors, pkw) -> int:
+    """(pixel, triangle) pairs a bounding-box rasteriser must test: per pose
+    and drawable triangle ([N, T] screen boxes), the strided pixels of the
+    ROI inside the box."""
+    height, stride = pkw["height"], pkw["stride"]
+    ax, ay = anchors[:, 0:1].float(), anchors[:, 1:2].float()
+    # Pixel column i sits at x = (ax + i) * stride, row j at
+    # y = height - 1 - (ay + j) * stride.
+    i0 = (torch.ceil(xmin / stride) - ax).clamp(min=0)
+    i1 = (torch.floor(xmax / stride) - ax).clamp(max=pkw["roi_w"] - 1)
+    j0 = (torch.ceil((height - 1 - ymax) / stride) - ay).clamp(min=0)
+    j1 = (torch.floor((height - 1 - ymin) / stride)
+          - ay).clamp(max=pkw["roi_h"] - 1)
+    cols = (i1 - i0 + 1).clamp(min=0)
+    rows = (j1 - j0 + 1).clamp(min=0)
+    return int((cols * rows * drawable).sum().item())
+
+
 def raster_pairs(pargs: tuple, pkw: dict) -> int:
-    """(pixel, triangle) pairs a bounding-box rasteriser must test at these
-    inputs: per pose and drawable triangle, the strided pixels of the ROI
-    inside the triangle's screen bounding box."""
+    """box_pairs of the rasters that read the bank (direct, bin)."""
     verts16, pose12, model_ids, anchors, proj12 = pargs
-    width, height, stride = pkw["width"], pkw["height"], pkw["stride"]
+    width, height = pkw["width"], pkw["height"]
     coefs = raster_direct._triangle_setup(verts16, pose12, model_ids, proj12,
                                           width, height)
     drawable = torch.isfinite(coefs[:, 8])          # [N, T]
@@ -219,27 +265,29 @@ def raster_pairs(pargs: tuple, pkw: dict) -> int:
         sy.append((y * pr[5] + z * pr[6] + pr[7]) / zdiv
                   * (height / 2) + height / 2)
     sx, sy = torch.stack(sx), torch.stack(sy)       # [3, N, T]
-    ax, ay = anchors[:, 0:1].float(), anchors[:, 1:2].float()
-    # Pixel column i sits at x = (ax + i) * stride, row j at
-    # y = height - 1 - (ay + j) * stride.
-    i0 = (torch.ceil(sx.amin(0) / stride) - ax).clamp(min=0)
-    i1 = (torch.floor(sx.amax(0) / stride) - ax).clamp(max=pkw["roi_w"] - 1)
-    j0 = (torch.ceil((height - 1 - sy.amax(0)) / stride) - ay).clamp(min=0)
-    j1 = (torch.floor((height - 1 - sy.amin(0)) / stride)
-          - ay).clamp(max=pkw["roi_h"] - 1)
-    cols = (i1 - i0 + 1).clamp(min=0)
-    rows = (j1 - j0 + 1).clamp(min=0)
-    return int((cols * rows * drawable).sum().item())
+    return box_pairs(sx.amin(0), sx.amax(0), sy.amin(0), sy.amax(0),
+                     drawable, anchors, pkw)
+
+
+def keys_pairs(call: tuple, pargs: tuple, pkw: dict) -> int:
+    """box_pairs of the coefficient-table raster, from the per-triangle
+    boxes its call is given (+-inf for culled triangles)."""
+    boxes = call[0][1]
+    return box_pairs(boxes[..., 0], boxes[..., 1], boxes[..., 2],
+                     boxes[..., 3], torch.isfinite(boxes[..., 0]), pargs[2],
+                     pkw)
 
 
 def work(name: str, pargs: tuple, pkw: dict, out, twin_extra) -> tuple:
     """(float32 operations, bytes) of one call at these inputs."""
     outs = out if isinstance(out, tuple) else (out,)
     moved = nbytes(pargs) + nbytes(outs)
-    if name == "raster_direct":
+    if name in ("raster_direct", "raster_bin"):
         n, t = pargs[1].shape[0], pargs[0].shape[2]
         return (raster_pairs(pargs, pkw) * RASTER_PAIR_OPS
                 + n * t * RASTER_TRI_OPS), moved
+    if name == "raster_keys":
+        return twin_extra * RASTER_PAIR_OPS, moved    # pairs in the boxes
     if name == "icp_fused":
         _, p, _ = pargs[0].shape
         s = pargs[3].shape[1]
@@ -281,6 +329,13 @@ def compare(name: str, kernel_out, twin_out) -> dict:
         require(frac >= 0.995, f"raster keys equal on {frac:.5f} < 0.995")
         require(bool((silhouette | step).all()),
                 "raster: a differing pixel is neither silhouette nor 1 cm")
+        return {"equal_frac": frac, "max_abs_err": float(err),
+                "err_unit": "cm of depth"}
+    if name in ("raster_keys", "raster_bin"):
+        same = kernel_out == twin_out
+        frac = same.float().mean().item()
+        err = ((kernel_out >> 11) - (twin_out >> 11)).abs().max().item()
+        require(frac == 1.0, f"{name} keys equal to the twin on {frac:.6f}")
         return {"equal_frac": frac, "max_abs_err": float(err),
                 "err_unit": "cm of depth"}
     if name == "icp_fused":
@@ -339,6 +394,8 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
         out_t = k.twin(*pargs, **pkw)
         if name.startswith("cost_fused_color"):
             extra = gated_points(pargs, pkw)
+        elif name == "raster_keys":
+            extra = keys_pairs(call, pargs, pkw)
     sync()
     result = compare(name, out_k, out_t)
     result["ms"] = time_ms(lambda: k.launch(*pargs, **pkw))
@@ -558,6 +615,171 @@ def check_served_path(bp, dev, label: str, requests: int) -> dict:
     return launches
 
 
+def raster_ab(case: str, problems: dict) -> None:
+    """The three rasters of `kernel_backend` at one batch: bin and direct on
+    the inputs the bin batch hands its wrapper (they read the same), keys on
+    its own batch's (the same poses and anchors). The bin keys must equal
+    the direct keys; the share of keys-kernel keys equal to them is
+    reported. Then, in turns, each kernel (median of 20 after 3 warm-ups),
+    the keys path's PyTorch setup (keys_setup, pack_coefficients and the
+    chunk boxes: work the other two rasters do in-kernel) and each backend's
+    whole batch (median of 10 after 1)."""
+    calls = {}
+    for backend, bp in problems.items():
+        with recorded_kernel_calls() as seen:
+            bp.score()
+        sync()
+        calls[backend] = seen[RASTERS[backend]]
+    bargs, bkw = calls["pallas_bin"]
+    prepared = {
+        "raster_direct": raster_direct.prepare_inputs(*bargs, **bkw),
+        "raster_bin": raster_bin.prepare_inputs(*bargs, **bkw),
+        "raster_keys": raster_keys.prepare_inputs(*calls["pallas"][0],
+                                                  **calls["pallas"][1])}
+    require(torch.equal(prepared["raster_keys"][0][2],
+                        prepared["raster_direct"][0][3]),
+            f"{case}: the keys and bin batches have other ROI anchors")
+    launch = {name: (lambda k=KERNELS[name], a=a: k.launch(*a[0], **a[1]))
+              for name, a in prepared.items()}
+    out = {name: fn() for name, fn in launch.items()}
+    sync()
+    direct = out["raster_direct"]
+    bin_equal = (out["raster_bin"] == direct).float().mean().item()
+    require(bin_equal == 1.0, f"{case}: bin keys equal direct on {bin_equal}")
+    keys_bp = problems["pallas"]
+    verts, _, valid, poses, ids, _, _, proj, _ = keys_bp.args
+    cfg = keys_bp.cfg
+    backface = keys_bp.env._render_bank[3]
+    anchors = calls["pallas"][0][2]
+
+    def keys_setup():
+        coefs, abs_base, ok, boxes = rasterizer.keys_setup(
+            verts, valid, poses, ids.long(), proj, cfg.width, cfg.height,
+            backface)
+        return raster_keys.prepare_inputs(
+            raster_keys.pack_coefficients(coefs, abs_base, ok), boxes, anchors,
+            width=cfg.width, height=cfg.height, stride=cfg.stride,
+            roi_shape=cfg.roi_shape)
+    require(torch.equal(keys_setup()[0][0], prepared["raster_keys"][0][0]),
+            f"{case}: the timed setup gives the batch's coefficient table")
+    order = ["raster_direct", "raster_keys", "raster_bin"]
+    kernel_ms: dict[str, list] = {n: [] for n in order}
+    for name in order + order[::-1]:
+        kernel_ms[name].append(time_ms(launch[name]))
+    setup_ms = time_ms(keys_setup)
+    batch_ms: dict[str, list] = {b: [] for b in problems}
+    for backend in ["auto", "pallas", "pallas_bin", "pallas_bin", "pallas",
+                    "auto"]:
+        batch_ms[backend] += event_times(problems[backend].score, warmup=1,
+                                         reps=10)
+    emit({"phase": "raster_ab", "case": case,
+          "poses": int(direct.shape[0]), "pixels": int(direct.shape[1]),
+          "kernel_ms": {n: statistics.mean(v) for n, v in kernel_ms.items()},
+          "kernel_ms_turns": kernel_ms, "keys_setup_ms": setup_ms,
+          "batch_ms": {b: statistics.median(v) for b, v in batch_ms.items()},
+          "bin_equal_direct_frac": bin_equal,
+          "keys_equal_direct_frac": (out["raster_keys"] == direct)
+          .float().mean().item()})
+
+
+def write_ply(path: Path, verts: np.ndarray, faces: np.ndarray,
+              colors: np.ndarray) -> None:
+    """An ASCII PLY mesh with per-vertex colours (rounded to uchar)."""
+    rgb = np.clip(np.rint(colors), 0, 255).astype(int)
+    lines = ["ply", "format ascii 1.0", f"element vertex {len(verts)}",
+             "property float x", "property float y", "property float z",
+             "property uchar red", "property uchar green",
+             "property uchar blue", f"element face {len(faces)}",
+             "property list uchar int vertex_indices", "end_header"]
+    lines += [f"{x:.17g} {y:.17g} {z:.17g} {r} {g} {b}"
+              for (x, y, z), (r, g, b) in zip(verts, rgb)]
+    lines += [f"3 {a} {b} {c}" for a, b, c in faces]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def check_cli_path(bp, backend: str) -> dict:
+    """The bench scene as files (the four models as PLY, the observation as
+    PNGs, every candidate in its object's poses.txt, a JSON config with the
+    problem's PerchConfig and EnvConfig, kernel_backend = backend), then
+    `perception_tpu_torch.cli localize --device cuda` in this process.
+    Returns the kernel launches of the run (counts set to 0 just before
+    it)."""
+    env = bp.env
+    rin = env._input
+    names = [m.name for m in env.bank.models]
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        for name, v, f, colors in bench_meshes(
+                np.random.default_rng(bp.seed), "bumpy1024",
+                env.bank.tri_valid.shape[1]):
+            write_ply(root / f"{name}.ply", v, f, colors)
+        write_png(str(root / "depth.png"),
+                  np.rint(rin.depth_image).astype(np.uint16))
+        write_png(str(root / "mask.png"), rin.label_mask.astype(np.uint8))
+        write_png(str(root / "rgb.png"),
+                  np.rint(rin.color_image).astype(np.uint8))
+        for i, name in enumerate(names):
+            rows = [[c.pose.x, c.pose.y, c.pose.z, *c.pose.quaternion()]
+                    for c in bp.candidates if c.id == i]
+            if rows:
+                (root / "rendered" / name).mkdir(parents=True)
+                np.savetxt(root / "rendered" / name / "poses.txt", rows)
+        config = {
+            "camera": dataclasses.asdict(env.camera),
+            "input": {"depth_image": "depth.png", "color_image": "rgb.png",
+                      "label_mask": "mask.png",
+                      "depth_factor": rin.depth_factor,
+                      "cam_to_world": np.asarray(rin.cam_to_world).tolist(),
+                      "segmented_object_names": rin.segmented_object_names},
+            "model_bank": [{"name": n, "path": f"{n}.ply"} for n in names],
+            "rendered_root_dir": "rendered",
+            "mode": "greedy",
+            "perch_params": dataclasses.asdict(env.perch),
+            "env_params": {**dataclasses.asdict(env.env),
+                           "kernel_backend": backend},
+        }
+        (root / "scene.json").write_text(json.dumps(config))
+        stdout = io.StringIO()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(["localize", "--config", str(root / "scene.json"),
+                           "--output", str(root / "out"), "--device",
+                           "cuda"])
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        twins = dict(build.TWIN_CALLS)
+        require(rc == 0, f"cli {backend}: exit code {rc}")
+        require((root / "out" / "output_poses.txt").exists(),
+                f"cli {backend}: no output_poses.txt")
+        summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    dets = dict(zip(summary["detected"], summary["poses"]))
+    errors_mm = {}
+    for i in (1, 2):
+        require(names[i] in dets, f"cli {backend}: {names[i]} not detected")
+        gt = bp.gt[i].pose
+        err = float(np.linalg.norm(np.asarray(dets[names[i]][:3])
+                                   - [gt.x, gt.y, gt.z]))
+        errors_mm[names[i]] = err * 1e3
+        require(err < 0.02, f"cli {backend}: {names[i]} off by "
+                f"{err * 1e3:.1f} mm")
+    emit({"phase": "cli", "kernel_backend": backend, "seconds": seconds,
+          "candidates": len(bp.candidates),
+          "scenes_rendered": summary["scenes_rendered"],
+          "detected": summary["detected"], "detection_error_mm": errors_mm,
+          "launches": launches, "twin_calls": twins})
+    raster = RASTERS[backend]
+    require(launches.get(raster, 0) > 0
+            and all(launches.get(n, 0) > 0 for n in DEPTH[1:]),
+            f"cli {backend}: launches {launches}")
+    require(launches.get("raster_direct", 0) == 0,
+            f"cli {backend}: the direct raster ran")
+    require(sum(twins.values()) == 0, f"cli {backend}: twins ran: {twins}")
+    return launches
+
+
 def problem(dev, **kw):
     t0 = time.perf_counter()
     bp = build_bench_problem(n_poses=N_POSES, model_kind="bumpy1024",
@@ -570,6 +792,9 @@ def problem(dev, **kw):
 
 
 def main() -> int:
+    # A crash in native code (the kernels' ctypes calls, the mesh loader)
+    # prints the Python stack of every thread to stderr.
+    faulthandler.enable()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (this script has no CPU mode)",
               file=sys.stderr)
@@ -616,6 +841,23 @@ def main() -> int:
     results["cost_fused_color"] = check_kernels(
         color_full, ("raster_direct", "icp_fused", "cost_fused_color"),
         "colour full-frame batch")[0]["cost_fused_color"]
+    # The coefficient-table and bin rasters (kernel_backend "pallas",
+    # "pallas_bin") at the depth ROI and colour full-frame batches, each
+    # against its twin; then the A/B of the three rasters. The {"kernels"}
+    # line reports them from the depth ROI batch.
+    for case, base, kw, cost_kernel in (
+            ("depth ROI", depth, {}, "cost_fused"),
+            ("colour full frame", color_full,
+             dict(use_color=True, roi_size=0), "cost_fused_color")):
+        problems = {"auto": base}
+        for backend in ("pallas", "pallas_bin"):
+            name = RASTERS[backend]
+            problems[backend] = problem(dev, kernel_backend=backend, **kw)
+            res = check_kernels(
+                problems[backend], (name, "icp_fused", cost_kernel),
+                f"{case} batch, {backend}", only=(name,))[0][name]
+            results.setdefault(name, res)
+        raster_ab(case, problems)
     # The real-sensor profile on the Kinect-degraded observation: the exact
     # fused ICP with source normals; then the fused ICP in its other modes
     # and the composed "nn" refiner, each scored once on the same batch.
@@ -661,11 +903,6 @@ def main() -> int:
         gicp, ("raster_direct", "nn1_batch", "cost_fused"),
         "gicp batch")[0]["nn1_batch"]
 
-    # Where a batch's time goes on the device.
-    profile_batch(depth, "depth ROI batch")
-    profile_batch(noisy, "noisy batch")
-    profile_batch(gicp, "gicp batch")
-
     # 4. The slices on the card, and their first N_CPU poses on the CPU.
     check_slice(depth, "depth ROI")
     check_slice(color_roi, "colour ROI")
@@ -700,6 +937,18 @@ def main() -> int:
             and gicp_launches.get("icp_fused", 0) == 0,
             f"gicp launches: {gicp_launches}")
     launches["nn1_batch"] = gicp_launches["nn1_batch"]
+
+    # 6. The localize CLI on the bench scene as files, through the bin and
+    # the coefficient-table raster.
+    for backend in ("pallas_bin", "pallas"):
+        raster = RASTERS[backend]
+        launches[raster] = check_cli_path(depth, backend)[raster]
+
+    # 7. Where a batch's time goes on the device, last: the profiler's CUPTI
+    # session is the one process-wide state no other phase changes.
+    profile_batch(depth, "depth ROI batch")
+    profile_batch(noisy, "noisy batch")
+    profile_batch(gicp, "gicp batch")
     require(not any(m.split(".")[0] in ("jax", "perception_tpu", "benchmarks")
                     for m in sys.modules),
             "jax or the JAX package was imported")

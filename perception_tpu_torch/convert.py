@@ -71,6 +71,11 @@ def scene_from_jax(scene, device: str | torch.device = "cpu") -> ObservedScene:
 
 
 def scorer_config_from_jax(cfg) -> ScorerConfig:
-    """A JAX ScorerConfig -> the port's, field by field. The JAX kernel
-    backend (e.g. "pallas_direct_interpret") maps to the port's only one."""
-    return dataclass_from_jax(cfg, ScorerConfig, backend="auto")
+    """A JAX ScorerConfig -> the port's, field by field. The kernel backend
+    keeps its raster ("pallas" -> the coefficient-table kernel, "pallas_bin"
+    and its interpreter -> the bin kernel); the direct family, "auto" and
+    "xla" (whose composed path the port has not) map to "auto", the direct
+    kernel."""
+    backend = {"pallas": "pallas", "pallas_bin": "pallas_bin",
+               "pallas_bin_interpret": "pallas_bin"}.get(cfg.backend, "auto")
+    return dataclass_from_jax(cfg, ScorerConfig, backend=backend)

@@ -22,7 +22,14 @@ import numpy as np
 from perception_tpu_torch.kernels.build import BUILD_DIR, CSRC
 
 SOURCE = CSRC / "mesh_loader.cpp"
-CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
+# A compiler that links libstdc++ statically would otherwise export that copy
+# and bind half of its calls to the process's own libstdc++ (loaded by torch):
+# iostream locale facets then mix the two copies' tables and segfault,
+# depending on which facets the process used first. --exclude-libs keeps a
+# static runtime private and -Bsymbolic binds the library's references
+# inside it; with a shared libstdc++ both change nothing.
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared",
+             "-Wl,--exclude-libs,ALL", "-Wl,-Bsymbolic")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -124,22 +124,12 @@ def bumpy_blob(rng, radius=0.06, target=1024):
     return dv, df
 
 
-def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
-                        width: int = 640, height: int = 480, stride: int = 8,
-                        seed: int = 0, model_kind: str = "blob",
-                        use_color: bool = False, roi_size: int = 32,
-                        icp_mode: str = "auto", sensor: str = "none",
-                        device: str | torch.device = "cuda") -> BenchProblem:
-    """model_kind: "blob" (convex hulls) or "bumpy1024" (~t_cap-triangle
-    non-convex models), as BENCH_MODELS selects for the JAX version;
-    use_color: the CIEDE2000-gated cost (PT_USE_COLOR); roi_size: the
-    strided ROI side, 0 for the full frame; icp_mode: the EnvConfig ICP mode
-    (PT_ICP_MODE; "fused_d2d_exact" is the real-sensor profile); sensor: the
-    eval.sensor_model degrading the observation (PT_SENSOR, e.g. "kinect")."""
-    rng = np.random.default_rng(seed)
-    cam = CameraIntrinsics(fx=1066.778, fy=1067.487, cx=312.9869,
-                           cy=241.3109, width=width, height=height)
-    models = []
+def bench_meshes(rng: np.random.Generator, model_kind: str = "blob",
+                 t_cap: int = 1024) -> list[tuple]:
+    """The four bench models as (name, vertices [V, 3], faces [F, 3],
+    vertex colours [V, 3] in 0..255), drawn from rng in the JAX benchmark's
+    order."""
+    meshes = []
     for i in range(4):
         if model_kind == "bumpy1024":
             v, f = bumpy_blob(rng, radius=0.05 + 0.015 * i, target=t_cap)
@@ -147,9 +137,31 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
             v, f = convex_blob(rng, radius=0.05 + 0.015 * i)
         else:
             raise ValueError(f"unknown model_kind {model_kind!r}")
-        colors = rng.uniform(40, 220, (len(v), 3))
-        models.append(mesh_model_from_arrays(
-            f"blob{i}", v, f, colors=colors, use_external_pose_list=True))
+        meshes.append((f"blob{i}", v, f, rng.uniform(40, 220, (len(v), 3))))
+    return meshes
+
+
+def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
+                        width: int = 640, height: int = 480, stride: int = 8,
+                        seed: int = 0, model_kind: str = "blob",
+                        use_color: bool = False, roi_size: int = 32,
+                        icp_mode: str = "auto", sensor: str = "none",
+                        kernel_backend: str = "auto",
+                        device: str | torch.device = "cuda") -> BenchProblem:
+    """model_kind: "blob" (convex hulls) or "bumpy1024" (~t_cap-triangle
+    non-convex models), as BENCH_MODELS selects for the JAX version;
+    use_color: the CIEDE2000-gated cost (PT_USE_COLOR); roi_size: the
+    strided ROI side, 0 for the full frame; icp_mode: the EnvConfig ICP mode
+    (PT_ICP_MODE; "fused_d2d_exact" is the real-sensor profile); sensor: the
+    eval.sensor_model degrading the observation (PT_SENSOR, e.g. "kinect");
+    kernel_backend: the EnvConfig raster backend (the JAX version's is
+    "auto")."""
+    rng = np.random.default_rng(seed)
+    cam = CameraIntrinsics(fx=1066.778, fy=1067.487, cx=312.9869,
+                           cy=241.3109, width=width, height=height)
+    models = [mesh_model_from_arrays(name, v, f, colors=colors,
+                                     use_external_pose_list=True)
+              for name, v, f, colors in bench_meshes(rng, model_kind, t_cap)]
     bank = ModelBank.from_models(models, t_cap=t_cap)
     perch = PerchConfig(gpu_stride=stride, gpu_batch_size=n_poses,
                         sensor_resolution=0.01,
@@ -158,7 +170,7 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
     env_cfg = EnvConfig(width=width, height=height, max_points_per_pose=1024,
                         max_observed_points=8192, max_points_per_label=1024,
                         max_labels=4, roi_size=roi_size,
-                        kernel_backend="auto",
+                        kernel_backend=kernel_backend,
                         icp_mode=icp_mode)
     env = PerceptionEnv(bank, cam, perch, env_cfg, device=device)
 

@@ -27,8 +27,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("raster_direct.cu", "icp_fused.cu", "cost_fused.cu",
-           "cost_fused_color.cu", "knn.cu")
+SOURCES = ("raster_direct.cu", "raster_keys.cu", "raster_bin.cu",
+           "icp_fused.cu", "cost_fused.cu", "cost_fused_color.cu", "knn.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "perception_tpu_torch"
 # --fmad=false: no contraction of a*b+c into FMAs, so each kernel rounds
 # exactly where its PyTorch twin does (the raster keys and the ICP
@@ -47,6 +47,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pt_raster_direct": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                          _P),
+    "pt_raster_keys": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "pt_raster_bin": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P),
     "pt_icp_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _F, _F,
                      _F, _I, _F, _F, _F, _F, _P, _P),
     "pt_cost_fused": (_P, _P, _P, _I, _I, _I, _F, _P, _P),

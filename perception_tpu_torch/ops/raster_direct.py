@@ -102,9 +102,12 @@ def launch_kernel(verts16, pose12, model_ids, anchors, proj12, *, width,
     return keys
 
 
-def _triangle_setup(verts16, pose12, model_ids, proj12, width, height):
+def _triangle_setup(verts16, pose12, model_ids, proj12, width, height,
+                    finite_guard: bool = False):
     """Per-pose triangle coefficients [N, 12, T], in the kernel's order of
-    operations (pallas_raster_direct.py:106-207)."""
+    operations (pallas_raster_direct.py:106-207). finite_guard: also cull
+    triangles whose w, beta_c or gamma_c coefficients are not finite, as the
+    bin kernel does per triangle (pallas_raster_bin.py:140-144)."""
     v = verts16[model_ids.long()]                    # [N, 16, T]
     p = [pose12[:, i:i + 1] for i in range(12)]      # [N, 1] each
     pr = [float(x) for x in proj12.tolist()]
@@ -155,13 +158,18 @@ def _triangle_setup(verts16, pose12, model_ids, proj12, width, height):
     iz1 = torch.where(ok, 1.0 / torch.where(ok, z1c, 1.0), 0.0)
     iz2 = torch.where(ok, 1.0 / torch.where(ok, z2c, 1.0), 0.0)
     d1, d2 = iz1 - iz0, iz2 - iz0
+    w_x = (beta_x * sign * d1 + gamma_x * sign * d2) * inv_base
+    w_y = (beta_y * sign * d1 + gamma_y * sign * d2) * inv_base
+    w_c = iz0 + (beta_c * sign * d1 + gamma_c * sign * d2) * inv_base
+    if finite_guard:
+        ok = ok & (torch.isfinite(w_x) & torch.isfinite(w_y)
+                   & torch.isfinite(w_c) & torch.isfinite(beta_c)
+                   & torch.isfinite(gamma_c))
     abs_base = torch.where(ok, base.abs(), float("-inf"))
     coefs = (
         beta_x, beta_y, beta_c, gamma_x, gamma_y, gamma_c,
         -beta_x - gamma_x, -beta_y - gamma_y, abs_base - beta_c - gamma_c,
-        (beta_x * sign * d1 + gamma_x * sign * d2) * inv_base,
-        (beta_y * sign * d1 + gamma_y * sign * d2) * inv_base,
-        iz0 + (beta_c * sign * d1 + gamma_c * sign * d2) * inv_base,
+        w_x, w_y, w_c,
     )
     return torch.stack(coefs, dim=1)                # [N, 12, T]
 
@@ -172,10 +180,22 @@ def rasterize_direct_twin(verts16: torch.Tensor, pose12: torch.Tensor,
                           stride: int, roi_h: int, roi_w: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel, vectorised over poses, pixels and
     triangles (no bbox cull: the cull never changes a key)."""
-    n = pose12.shape[0]
-    t = verts16.shape[2]
-    dev = pose12.device
     coefs = _triangle_setup(verts16, pose12, model_ids, proj12, width, height)
+    return twin_keys(coefs, anchors, height=height, stride=stride,
+                     roi_h=roi_h, roi_w=roi_w, w_test=True)
+
+
+def twin_keys(coefs: torch.Tensor, anchors: torch.Tensor, *, height: int,
+              stride: int, roi_h: int, roi_w: int,
+              w_test: bool) -> torch.Tensor:
+    """The rasters' shared per-pixel pass in plain PyTorch: per strided ROI
+    pixel, the max over covered triangles of the packed w key, then the
+    epilogue. coefs [N, 12, T] rows (beta, gamma, alpha, w) x (px, py, 1).
+    Covered means alpha, beta, gamma >= 0 (NaN fails), and with w_test also
+    a finite w > 0 (the direct kernel's test; the coefficient-table and bin
+    kernels have none)."""
+    n, _, t = coefs.shape
+    dev = coefs.device
     npix = roi_h * roi_w
     flat = torch.arange(npix, device=dev)
     px = ((anchors[:, 0:1] + flat % roi_w) * stride).to(torch.float32)
@@ -195,8 +215,9 @@ def rasterize_direct_twin(verts16: torch.Tensor, pose12: torch.Tensor,
                 return c[:, r] * x + c[:, r + 1] * y + c[:, r + 2]
 
             beta, gamma, alpha, w = affine(0), affine(3), affine(6), affine(9)
-            covered = ((alpha >= 0.0) & (beta >= 0.0) & (gamma >= 0.0)
-                       & torch.isfinite(w) & (w > 0.0))
+            covered = (alpha >= 0.0) & (beta >= 0.0) & (gamma >= 0.0)
+            if w_test:
+                covered &= torch.isfinite(w) & (w > 0.0)
             wkey = (w.view(torch.int32) & ~_ID_MASK) | ids
             cand = torch.where(covered, wkey, 0)
             best[i:i + nb, j:j + pb] = cand.amax(dim=-1)

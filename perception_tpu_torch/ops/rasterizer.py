@@ -1,10 +1,14 @@
 """Batched candidate-pose rendering: strided depth, colour and triangle ids.
 
-Counterpart of `perception_tpu/ops/rasterizer.py` with the direct kernel
-(`ops/raster_direct.py`) as its only raster. The packed keys become depth
-(int cm), winning triangle id and face colour; then the occlusion pass
-against the observed source images removes render pixels hidden behind
-closer source geometry of another segment, and counts `clutter_ratio`.
+Counterpart of `perception_tpu/ops/rasterizer.py`. `backend` picks the
+raster, as the JAX package's kernel backends do: the direct kernel
+(`ops/raster_direct.py`; "auto", "pallas_direct"), the coefficient-table
+kernel (`ops/raster_keys.py`; "pallas") fed by the per-pose triangle setup
+below in plain PyTorch, or the scatter-bin kernel (`ops/raster_bin.py`;
+"pallas_bin"). The packed keys become depth (int cm), winning triangle id
+and face colour; then the occlusion pass against the observed source images
+removes render pixels hidden behind closer source geometry of another
+segment, and counts `clutter_ratio`.
 """
 
 from __future__ import annotations
@@ -20,6 +24,21 @@ TRI_ID_BITS = 11
 MAX_TRIS = 1 << TRI_ID_BITS
 _MAX_DEPTH = (1 << 20) - 2
 _INVALID_KEY = 2**31 - 1
+# Kernel backends of the port ("auto" is the direct kernel on every device).
+BACKENDS = ("auto", "pallas_direct", "pallas", "pallas_bin")
+
+
+def check_backend(backend: str) -> None:
+    """Raise unless the port has this kernel backend: "xla" (the composed
+    XLA raster and cost) is not ported; the JAX package's *_interpret names
+    run its Pallas interpreter and have no counterpart here."""
+    if backend == "xla":
+        raise NotImplementedError(
+            "kernel backend 'xla' (the composed raster and cost) is not "
+            "ported to PyTorch yet")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}; the port has "
+                         f"{', '.join(BACKENDS)}")
 
 
 @dataclasses.dataclass
@@ -73,6 +92,103 @@ def model_centers(bank_tri_verts: torch.Tensor,
     return (masked.sum(dim=(1, 2)) / (3.0 * counts)).float()
 
 
+def screen_vertices(tri_v_cam_cm: torch.Tensor, proj: torch.Tensor,
+                    width: int, height: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Camera-frame (cm) triangle vertices [..., 3(vert), 3(xyz)] -> screen
+    points [..., 3, 2] and depths [..., 3]: clip = proj @ v, divided by the
+    pre-projection z (no guard: triangle_coefficients culls z <= 1e-3)."""
+    pr = [float(x) for x in proj[:2].reshape(-1).tolist()]
+    x, y, z = tri_v_cam_cm[..., 0], tri_v_cam_cm[..., 1], tri_v_cam_cm[..., 2]
+    clip_x = x * pr[0] + y * pr[1] + z * pr[2] + pr[3]
+    clip_y = y * pr[5] + z * pr[6] + pr[7]
+    sx = clip_x / z * (width / 2.0) + width / 2.0
+    sy = clip_y / z * (height / 2.0) + height / 2.0
+    return torch.stack([sx, sy], dim=-1), z
+
+
+def triangle_coefficients(pts2: torch.Tensor, z: torch.Tensor,
+                          tri_ok: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-triangle affine functionals of the screen position (px, py, 1):
+    (coefs [..., T, 3, 3] rows beta, gamma (sign-adjusted, unnormalised)
+    and w = 1/depth; abs_base [..., T] = |base|, the coverage test's third
+    bound; ok [..., T]). Triangles of projected area <= 0.01 px^2 or behind
+    z = 1e-3 are culled. The JAX package's function in the same order of
+    operations, without the vertex depth range its XLA raster clamps to."""
+    p0, p1, p2 = pts2[..., 0, :], pts2[..., 1, :], pts2[..., 2, :]
+    z0, z1, z2 = z[..., 0], z[..., 1], z[..., 2]
+    e20 = p2 - p0
+    e10 = p1 - p0
+    base = 0.5 * (e20[..., 0] * e10[..., 1] - e10[..., 0] * e20[..., 1])
+    ok = (tri_ok & (base.abs() > 1e-2) & (z0 > 1e-3) & (z1 > 1e-3)
+          & (z2 > 1e-3))
+    sign = torch.where(base >= 0, 1.0, -1.0)
+    inv_base = torch.where(ok, 1.0 / torch.where(ok, base, 1.0), 0.0)
+    beta_x = -0.5 * e20[..., 1]
+    beta_y = 0.5 * e20[..., 0]
+    beta_c = 0.5 * (p0[..., 0] * e20[..., 1] - p0[..., 1] * e20[..., 0])
+    gamma_x = 0.5 * e10[..., 1]
+    gamma_y = -0.5 * e10[..., 0]
+    gamma_c = 0.5 * (p0[..., 1] * e10[..., 0] - p0[..., 0] * e10[..., 1])
+    iz0 = torch.where(ok, 1.0 / torch.where(ok, z0, 1.0), 0.0)
+    iz1 = torch.where(ok, 1.0 / torch.where(ok, z1, 1.0), 0.0)
+    iz2 = torch.where(ok, 1.0 / torch.where(ok, z2, 1.0), 0.0)
+    d1, d2 = iz1 - iz0, iz2 - iz0
+    w_x = (beta_x * d1 + gamma_x * d2) * inv_base
+    w_y = (beta_y * d1 + gamma_y * d2) * inv_base
+    w_c = iz0 + (beta_c * d1 + gamma_c * d2) * inv_base
+    coefs = torch.stack([
+        torch.stack([beta_x, beta_y, beta_c], dim=-1) * sign[..., None],
+        torch.stack([gamma_x, gamma_y, gamma_c], dim=-1) * sign[..., None],
+        torch.stack([w_x, w_y, w_c], dim=-1),
+    ], dim=-2)
+    return coefs, base.abs(), ok
+
+
+def keys_setup(bank_tri_verts: torch.Tensor, bank_tri_valid: torch.Tensor,
+               pose_mats: torch.Tensor, model_ids: torch.Tensor,
+               proj: torch.Tensor, width: int, height: int,
+               bank_backface: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """The coefficient-table raster's per-pose triangle setup (the JAX
+    render_pose_batch's setup_pallas): camera transform, backface cull by
+    the cross product in metres, x100 to cm, projection, coefficients, and
+    each triangle's screen bbox (xmin, xmax, ymin, ymax; +-inf when culled).
+    Element-wise in a fixed order (no matmul), so it rounds alike on the
+    CPU and the card. Returns (coefs [N, T, 3, 3], abs_base [N, T],
+    ok [N, T], bboxes [N, T, 4])."""
+    tv = bank_tri_verts[model_ids]                   # [N, T, 3, 3]
+    ok = bank_tri_valid[model_ids]
+    r = [pose_mats[:, i, j, None, None] for i in range(3) for j in range(4)]
+    vx, vy, vz = tv[..., 0], tv[..., 1], tv[..., 2]  # [N, T, 3]
+    cx = r[0] * vx + r[1] * vy + r[2] * vz + r[3]
+    cy = r[4] * vx + r[5] * vy + r[6] * vz + r[7]
+    cz = r[8] * vx + r[9] * vy + r[10] * vz + r[11]
+    if bank_backface is not None:
+        e1x, e1y, e1z = (cx[..., 1] - cx[..., 0], cy[..., 1] - cy[..., 0],
+                         cz[..., 1] - cz[..., 0])
+        e2x, e2y, e2z = (cx[..., 2] - cx[..., 0], cy[..., 2] - cy[..., 0],
+                         cz[..., 2] - cz[..., 0])
+        nx = e1y * e2z - e1z * e2y
+        ny = e1z * e2x - e1x * e2z
+        nz = e1x * e2y - e1y * e2x
+        facing = (nx * cx[..., 0] + ny * cy[..., 0] + nz * cz[..., 0]) < 0.0
+        ok = ok & (facing | ~bank_backface[model_ids][:, None])
+    v_cam = torch.stack([cx, cy, cz], dim=-1) * 100.0
+    pts2, z = screen_vertices(v_cam, proj, width, height)
+    coefs, abs_base, cok = triangle_coefficients(pts2, z, ok)
+    inf = float("inf")
+    bbox = torch.stack([
+        torch.where(cok, pts2[..., 0].amin(dim=-1), inf),
+        torch.where(cok, pts2[..., 0].amax(dim=-1), -inf),
+        torch.where(cok, pts2[..., 1].amin(dim=-1), inf),
+        torch.where(cok, pts2[..., 1].amax(dim=-1), -inf),
+    ], dim=-1)
+    return coefs, abs_base, cok, bbox
+
+
 def render_pose_batch(
     bank_tri_verts: torch.Tensor,    # [M, T, 3, 3] float32 model frame (m)
     bank_tri_colors: torch.Tensor,   # [M, T, 3] float32 0..255
@@ -92,18 +208,17 @@ def render_pose_batch(
     use_tree_occlusion: bool = False,
     roi_shape: tuple[int, int] | None = None,   # (roi_h, roi_w) strided
     bank_backface: torch.Tensor | None = None,  # [M] bool watertight models
+    backend: str = "auto",   # "auto" | "pallas_direct" | "pallas" | "pallas_bin"
 ) -> RenderOutput:
     """Render N candidate poses as strided depth + colour images with the
     occlusion pass. With roi_shape each pose renders a window centred on
     its projected model centre; `anchors` gives each window's origin."""
+    check_backend(backend)
     if use_tree_occlusion:
         raise NotImplementedError(
             "use_tree_occlusion (render-occludes-source invalidation) is not "
             "ported; the greedy path runs with it off")
-    from perception_tpu_torch.ops.raster_direct import (
-        pack_bank_verts,
-        rasterize_direct,
-    )
+    from perception_tpu_torch.ops import raster_bin, raster_direct, raster_keys
 
     n = pose_mats.shape[0]
     dev = pose_mats.device
@@ -117,10 +232,21 @@ def render_pose_batch(
         out_h, out_w = height // stride, width // stride
         anchors = torch.zeros((n, 2), dtype=torch.int32, device=dev)
 
-    verts16 = pack_bank_verts(bank_tri_verts, bank_tri_valid, bank_backface)
-    keys = rasterize_direct(verts16, pose_mats, ids, anchors, proj,
-                            width=width, height=height, stride=stride,
-                            roi_shape=roi_shape)
+    geometry = dict(width=width, height=height, stride=stride,
+                    roi_shape=roi_shape)
+    if backend == "pallas":
+        coefs, abs_base, ok, bboxes = keys_setup(
+            bank_tri_verts, bank_tri_valid, pose_mats, ids, proj, width,
+            height, bank_backface)
+        keys = raster_keys.rasterize_keys(
+            raster_keys.pack_coefficients(coefs, abs_base, ok), bboxes,
+            anchors, **geometry)
+    else:
+        verts16 = raster_direct.pack_bank_verts(bank_tri_verts, bank_tri_valid,
+                                                bank_backface)
+        raster = (raster_bin.rasterize_bin if backend == "pallas_bin"
+                  else raster_direct.rasterize_direct)
+        keys = raster(verts16, pose_mats, ids, anchors, proj, **geometry)
 
     empty = keys == _INVALID_KEY
     depth = torch.where(empty, 0, keys >> TRI_ID_BITS)

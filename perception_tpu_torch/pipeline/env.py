@@ -10,9 +10,14 @@ gate (cost type 3) when `PerchConfig.use_color_cost` is set;
 |target - source| < 30 filter. The env runs on the card unless given
 `device="cpu"`.
 
+`EnvConfig.kernel_backend` picks the scoring raster ("auto" and
+"pallas_direct": the direct kernel; "pallas": the coefficient-table kernel;
+"pallas_bin": the scatter-bin kernel); the observation render of
+`render_composite` always takes the direct kernel, as the JAX env takes its
+default backend there.
+
 Not ported yet (they raise): 3-DoF input and successors, `fine_stride`,
-`pose_refinement_rounds`, kernel backends other than "auto", and the
-debug-image dumps.
+`pose_refinement_rounds`, the "xla" backend, and the debug-image dumps.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from perception_tpu_torch.ops.color import rgb_to_lab
 from perception_tpu_torch.ops.cost import COST_TYPE_6DOF, COST_TYPE_6DOF_RGB
 from perception_tpu_torch.ops.icp import cloud_normals
 from perception_tpu_torch.ops.pointcloud import observed_cloud_from_depth
-from perception_tpu_torch.ops.rasterizer import render_pose_batch
+from perception_tpu_torch.ops.rasterizer import check_backend, render_pose_batch
 from perception_tpu_torch.pipeline.scorer import (
     ObservedScene,
     ScorerConfig,
@@ -86,8 +91,7 @@ class PerceptionEnv:
         self.camera = camera
         self.perch = perch or PerchConfig()
         self.env = env or EnvConfig(width=camera.width, height=camera.height)
-        if self.env.kernel_backend != "auto":
-            raise _unported(f"kernel_backend={self.env.kernel_backend!r}")
+        check_backend(self.env.kernel_backend)
         if self.env.fine_stride:
             raise _unported("fine_stride (coarse-to-fine re-scoring)")
         if self.env.pose_refinement_rounds:
@@ -311,6 +315,7 @@ class PerceptionEnv:
             icp_stagnation_streak=env.icp_stagnation_streak,
             depth_factor=env.gpu_depth_factor,
             roi_shape=roi,
+            backend=env.kernel_backend,
             use_clutter_mode=perch.use_clutter_mode,
             clutter_regularizer=perch.clutter_regularizer,
         )

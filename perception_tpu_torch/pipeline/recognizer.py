@@ -25,6 +25,7 @@ from perception_tpu_torch.core.pose import ContPose
 from perception_tpu_torch.core.state import GraphState, ObjectState
 from perception_tpu_torch.io.model_cache import load_model_cached
 from perception_tpu_torch.io.poses_file import (
+    read_poses_file,
     write_cost_dump,
     write_output_poses,
     write_output_stats,
@@ -164,3 +165,16 @@ class ObjectRecognizer:
         if chosen:
             write_cost_dump(
                 os.path.join(output_dir, "cost_dump.json"), chosen, self.env)
+
+    def read_pose_lists(self, rendered_root_dir: str,
+                        names: list[str] | None = None
+                        ) -> dict[str, np.ndarray]:
+        """Per-object `<rendered_root_dir>/<name>/poses.txt` candidate files
+        (the 6-DoF candidate contract) -> {name: [K, 7]}; objects without a
+        file are left out."""
+        out = {}
+        for name in (names or [s.name for s in self.specs]):
+            path = os.path.join(rendered_root_dir, name, "poses.txt")
+            if os.path.exists(path):
+                out[name] = read_poses_file(path)
+        return out

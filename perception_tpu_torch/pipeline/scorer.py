@@ -3,7 +3,9 @@
 Counterpart of `perception_tpu/pipeline/scorer.py` for the greedy 6-DoF
 configuration:
 
-    direct raster (ROI or full frame) + occlusion pass
+    raster by `backend` (the direct kernel for "auto" / "pallas_direct", the
+    coefficient-table kernel for "pallas", the scatter-bin kernel for
+    "pallas_bin"; ROI or full frame) + occlusion pass
       -> depth_to_cloud_roi / depth_to_cloud_batch
       -> ICP on the downsampled cloud, by `icp_mode`:
            "fused" / "fused_d2d" / "fused_d2d_exact": label-shared "near"
@@ -16,7 +18,9 @@ configuration:
       -> fused cost, depth only or colour-gated (CIEDE2000) -> total cost.
 
 The same `ScorerConfig` (field names and defaults as the JAX one) selects the
-path; every branch that is not ported raises NotImplementedError.
+path; every branch that is not ported raises NotImplementedError. As in the
+JAX scorer, the backend changes only the raster: ICP and cost run the same
+kernels under every backend.
 
 The colour-gated cost (types 1 / 3, with `bank_tri_lab`) compares Lab
 colours: on the ROI path the cost kernel looks up each point's rendered Lab
@@ -138,8 +142,6 @@ def _unported(what: str) -> NotImplementedError:
 
 
 def _check_config(cfg: ScorerConfig) -> None:
-    if cfg.backend != "auto":
-        raise _unported(f"backend={cfg.backend!r} (the port has one backend)")
     if cfg.cost_type not in (0, 1, 2, 3):
         raise ValueError(f"unknown cost_type {cfg.cost_type}")
     if cfg.use_tree_occlusion:
@@ -167,7 +169,7 @@ def _render_and_cloud(bank_tri_verts, bank_tri_colors, bank_tri_valid, poses,
         pose_labels=pose_labels, occlusion_threshold=cfg.occlusion_threshold,
         use_segmentation_label=cfg.use_segmentation_label,
         use_tree_occlusion=cfg.use_tree_occlusion, roi_shape=cfg.roi_shape,
-        bank_backface=bank_backface)
+        bank_backface=bank_backface, backend=cfg.backend)
     cam = dict(fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=cfg.width,
                height=cfg.height, stride=cfg.stride,
                depth_factor=cfg.depth_factor)

@@ -220,6 +220,38 @@ def test_mesh_files_load_like_jax(tmp_path, fmt):
                                           getattr(ref, f.name), f.name)
 
 
+def test_mesh_library_keeps_a_static_libstdcxx_private(tmp_path):
+    """Built by a compiler that links libstdc++ statically, the mesh library
+    must keep that copy private: exported, it binds part of its iostream
+    calls to the process's own libstdc++ (loaded by torch), and the PLY
+    parser misreads every element count (or segfaults). With the port's
+    flags such a build reads a file as the shared-libstdc++ build does."""
+    from perception_tpu_torch.core import native
+
+    lib = tmp_path / "libmesh_static.so"
+    subprocess.run(["g++", *native.CXX_FLAGS, "-static-libstdc++", "-o",
+                    str(lib), str(native.SOURCE)], check=True,
+                   capture_output=True, timeout=300)
+    ply = str(tmp_path / "box.ply")
+    _write_box_ply(ply, 0.12, 0.08, 0.10, (200, 40, 40))
+    code = ("import ctypes, numpy as np, torch\n"
+            "from perception_tpu_torch.core import native\n"
+            f"ref = native.load_mesh({ply!r})\n"
+            "shared = native.library()\n"
+            f"lib = ctypes.CDLL({str(lib)!r})\n"
+            "for name in ('pt_load_mesh', 'pt_free', 'pt_last_error'):\n"
+            "    getattr(lib, name).argtypes = getattr(shared, name).argtypes\n"
+            "    getattr(lib, name).restype = getattr(shared, name).restype\n"
+            "native._lib = lib\n"
+            f"out = native.load_mesh({ply!r})\n"
+            "assert len(out[0]) == 8, out[0].shape\n"
+            "for a, b in zip(out, ref):\n"
+            "    assert np.array_equal(a, b), (a, b)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_pose_files_have_the_jax_bytes(tmp_path):
     rng = np.random.default_rng(4)
     dets_p, dets_j = [], []

@@ -216,7 +216,7 @@ def test_recognizer_from_mesh_files_writes_outputs(jax_env, tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(kernel_backend="pallas"), dict(fine_stride=1),
+    dict(kernel_backend="xla"), dict(fine_stride=1),
     dict(pose_refinement_rounds=1),
 ])
 def test_unported_env_options_raise(jax_env, change):
