@@ -18,11 +18,17 @@ requests through the port's HTTP service on five paths (depth ROI, colour
 ROI, colour full frame, real-sensor profile, gicp), and runs the `localize`
 CLI on the bench scene written as files (PLY models, PNG images, poses.txt,
 a JSON config) with kernel_backend "pallas_bin" and "pallas", checking the
-detections against the ground truth. Last, it traces one depth, noisy and
-gicp batch with torch.profiler (device busy time, top ops). The launch
-counts are set to 0 just before each served path or scored batch and read
-just after it. Every phase prints one JSON line; the run ends with a {"kernels": [...]}
-line, the card's `nvidia-smi` name and power limit, and {"ok": true,
+detections against the ground truth. The 1-NN kernel and the direct raster
+are also held against their twins at edge shapes (several reference tiles,
+ties, a pose with no valid reference; one pose, a 24x24 ROI, T = 200,
+T = 1024 at 640x480 stride 1, a pose behind the camera). Last, it traces
+one depth, noisy and gicp batch with torch.profiler (device busy time, top
+ops). A kernel's `ms` is one launch between two CUDA events, the host's
+enqueue of it included; its `device_ms` is the device alone (a device spin
+queued ahead of the start event, so the host enqueues the launch while the
+card is busy). The launch counts are set to 0 just before each served path or scored
+batch and read just after it. Every phase prints one JSON line; the run
+ends with a {"kernels": [...]} line, the card's `nvidia-smi` name and power limit, and {"ok": true,
 "device": {...}}. Any failed check raises and the exit code is non-zero.
 There is no CPU fallback: without a CUDA device the script exits with code 2
 and prints nothing on stdout.
@@ -92,6 +98,7 @@ ICP_POINT_OPS = {"p2p": 120, "d2d": 200, "sym": 310, "exact": 260}
 NN_PAIR_OPS = 9           # 3 sub, 3 mul, 3 add per query x reference
 COST_PAIR_OPS = 9         # 3 sub, 3 mul, 3 add per point x target
 CIEDE_OPS = 160           # one CIEDE2000 per gated point
+SPIN_CYCLES = 400_000     # ~0.2 ms of device spin ahead of a kernel timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +168,11 @@ DEPTH = ("raster_direct", "icp_fused", "cost_fused")
 RASTERS = {"auto": "raster_direct", "pallas": "raster_keys",
            "pallas_bin": "raster_bin"}
 REPO = Path(__file__).resolve().parent
+# (kernel, case) -> the prepared inputs kernel_phase held it on.
+INPUTS: dict[tuple[str, str], tuple] = {}
+ROI_CASE = "scoring batch"
+FULL_CASE = "colour full-frame batch"
+FRAME_CASE = "observation 640x480 stride 1"
 
 
 def emit(obj: dict) -> None:
@@ -176,8 +188,13 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def event_times(fn, warmup: int = 3, reps: int = 20) -> list[float]:
-    """CUDA-event times of fn() in ms, one per run."""
+def event_times(fn, warmup: int = 3, reps: int = 20,
+                device_only: bool = False) -> list[float]:
+    """CUDA-event times of fn() in ms, one per run. With device_only, a
+    0.2 ms device-side spin is queued ahead of the start event, so the host
+    enqueues fn's launches while the card is busy and the events time the
+    device alone (without it they also time the host's launch overhead,
+    during which the card idles)."""
     for _ in range(warmup):
         fn()
     sync()
@@ -185,6 +202,8 @@ def event_times(fn, warmup: int = 3, reps: int = 20) -> list[float]:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -193,9 +212,15 @@ def event_times(fn, warmup: int = 3, reps: int = 20) -> list[float]:
     return times
 
 
-def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+def time_ms(fn, warmup: int = 3, reps: int = 20,
+            device_only: bool = False) -> float:
     """Median CUDA-event time of fn() in ms."""
-    return statistics.median(event_times(fn, warmup, reps))
+    return statistics.median(event_times(fn, warmup, reps, device_only))
+
+
+def device_ms(fn) -> float:
+    """A kernel's device time: median of 20 after 3 warm-ups, device only."""
+    return time_ms(fn, device_only=True)
 
 
 @contextlib.contextmanager
@@ -316,22 +341,7 @@ def gated_points(pargs: tuple, pkw: dict) -> int:
 
 def compare(name: str, kernel_out, twin_out) -> dict:
     """Hold a kernel's output against its twin's with the kernel's bar."""
-    if name == "raster_direct":
-        k, t = kernel_out, twin_out
-        same = k == t
-        frac = same.float().mean().item()
-        diff = ~same
-        silhouette = (k[diff] == INVALID_KEY) | (t[diff] == INVALID_KEY)
-        step = ((k[diff] >> 11) - (t[diff] >> 11)).abs() <= 1
-        both = (k != INVALID_KEY) & (t != INVALID_KEY)
-        err = ((k >> 11) - (t >> 11)).abs()[both].max().item() if both.any() \
-            else 0
-        require(frac >= 0.995, f"raster keys equal on {frac:.5f} < 0.995")
-        require(bool((silhouette | step).all()),
-                "raster: a differing pixel is neither silhouette nor 1 cm")
-        return {"equal_frac": frac, "max_abs_err": float(err),
-                "err_unit": "cm of depth"}
-    if name in ("raster_keys", "raster_bin"):
+    if name in ("raster_direct", "raster_keys", "raster_bin"):
         same = kernel_out == twin_out
         frac = same.float().mean().item()
         err = ((kernel_out >> 11) - (twin_out >> 11)).abs().max().item()
@@ -379,6 +389,7 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
     k = KERNELS[name]
     args, kwargs = call
     pargs, pkw = k.prepare(*args, **kwargs)
+    INPUTS[name, label] = pargs, pkw
     out_k = k.launch(*pargs, **pkw)
     sync()
     extra = None
@@ -399,6 +410,7 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
     sync()
     result = compare(name, out_k, out_t)
     result["ms"] = time_ms(lambda: k.launch(*pargs, **pkw))
+    result["device_ms"] = device_ms(lambda: k.launch(*pargs, **pkw))
     result["plain_ms"] = time_ms(lambda: k.twin(*pargs, **pkw), warmup=1,
                                  reps=5)
     ops, moved = work(name, pargs, pkw, out_k, extra)
@@ -672,14 +684,102 @@ def raster_ab(case: str, problems: dict) -> None:
                     "auto"]:
         batch_ms[backend] += event_times(problems[backend].score, warmup=1,
                                          reps=10)
+    mean_ms = {n: statistics.mean(v) for n, v in kernel_ms.items()}
+    keys_equal = (out["raster_keys"] == direct).float().mean().item()
     emit({"phase": "raster_ab", "case": case,
           "poses": int(direct.shape[0]), "pixels": int(direct.shape[1]),
-          "kernel_ms": {n: statistics.mean(v) for n, v in kernel_ms.items()},
-          "kernel_ms_turns": kernel_ms, "keys_setup_ms": setup_ms,
+          "kernel_ms": mean_ms, "kernel_ms_turns": kernel_ms,
+          "direct_over_bin": mean_ms["raster_direct"] / mean_ms["raster_bin"],
+          "keys_setup_ms": setup_ms,
           "batch_ms": {b: statistics.median(v) for b, v in batch_ms.items()},
           "bin_equal_direct_frac": bin_equal,
-          "keys_equal_direct_frac": (out["raster_keys"] == direct)
-          .float().mean().item()})
+          "keys_equal_direct_frac": keys_equal})
+    require(keys_equal == 1.0,
+            f"{case}: keys-raster keys equal direct on {keys_equal}")
+
+
+def edge_phase(name: str, label: str, pargs: tuple, pkw: dict):
+    """One kernel against its twin at an edge shape; exact equality."""
+    k = KERNELS[name]
+    out = k.launch(*pargs, **pkw)
+    sync()
+    res = compare(name, out, k.twin(*pargs, **pkw))
+    shapes = [list(a.shape) for a in pargs if isinstance(a, torch.Tensor)]
+    emit({"phase": "edge", "kernel": name, "case": label, "shapes": shapes,
+          **{key: pkw[key] for key in ("roi_h", "roi_w", "stride")
+             if key in pkw},
+          **res})
+    return out
+
+
+def nn1_edge_cases(dev) -> None:
+    """The 1-NN kernel at shapes off the main path: several reference tiles
+    and a partial query block, fewer queries and references than a tile, a
+    pose with no valid reference, and exact ties between duplicated
+    references (each must go to the lowest valid index)."""
+    rng = np.random.default_rng(5)
+
+    def cloud(*shape):
+        x = rng.normal(0, 0.05, shape).astype(np.float32)
+        x[..., 2] += 0.6
+        return x
+
+    cases = [(f"N={n} P={p} S={s}", cloud(n, p, 3), cloud(n, s, 3),
+              rng.random((n, s)) > 0.3)
+             for n, p, s in ((3, 300, 700), (2, 50, 40))]
+    rvalid = rng.random((4, 256)) > 0.3
+    rvalid[1] = False
+    cases.append(("pose 1 without a valid reference", cloud(4, 256, 3),
+                  cloud(4, 256, 3), rvalid))
+    ref = cloud(4, 256, 3)
+    ref[:, 128:] = ref[:, :128]                 # every reference twice
+    query = ref.copy()                          # 128 exact hits at d = 0
+    query[:, 128:] += rng.normal(0, 1e-3, (4, 128, 3)).astype(np.float32)
+    rvalid = np.ones((4, 256), bool)
+    rvalid[:, :16] = False                      # their duplicates win
+    cases.append(("every reference twice (exact ties)", query, ref, rvalid))
+    for label, q, r, rv in cases:
+        q, r, rv = (torch.as_tensor(a, device=dev) for a in (q, r, rv))
+        pargs, pkw = knn.prepare_inputs(q, None, r, rv)
+        dist, idx = edge_phase("nn1_batch", label, pargs, pkw)
+        if "pose 1" in label:
+            require(bool(torch.isinf(dist[1]).all() and (idx[1] == 0).all()),
+                    "nn1_batch: a pose without references gives (inf, 0)")
+        if "ties" in label:
+            first = torch.where(idx >= 128, idx - 128, idx)
+            require(bool(((idx < 128) | (first < 16)).all()),
+                    "nn1_batch: a tie went to the higher valid index")
+
+
+def raster_edge_cases() -> None:
+    """The direct raster at shapes off the main path, from the scoring
+    batch's inputs: one pose; a 24x24 ROI (2x2 tiles, the last ones 8 wide);
+    T = 200 (a multiple of neither the tile, the setup pass nor the
+    cluster); T = 1024 over the 640x480 frame at stride 1 for 8 candidate
+    poses; a batch whose second pose lies behind the camera (every triangle
+    culled)."""
+    pargs, pkw = INPUTS["raster_direct", ROI_CASE]
+    verts16, pose12, ids, anchors, proj12 = pargs
+    frame_verts, _, _, frame_anchors, _ = INPUTS["raster_direct",
+                                                 FRAME_CASE][0]
+    behind = pose12[:4].clone()
+    behind[1, 11] = -behind[1, 11]              # z translation negated
+    cases = [
+        ("N=1", (verts16, pose12[:1], ids[:1], anchors[:1], proj12), pkw),
+        ("ROI 24x24", pargs, {**pkw, "roi_h": 24, "roi_w": 24}),
+        ("T=200", (verts16[:, :, :200].contiguous(), *pargs[1:]), pkw),
+        ("T=1024, 640x480 stride 1, 8 poses",
+         (frame_verts, pose12[:8], ids[:8],
+          frame_anchors[:1].expand(8, 2).contiguous(), proj12),
+         INPUTS["raster_direct", FRAME_CASE][1]),
+        ("pose 1 behind the camera", (verts16, behind, ids[:4], anchors[:4],
+                                      proj12), pkw)]
+    for label, args, kw in cases:
+        keys = edge_phase("raster_direct", label, args, kw)
+        if "behind" in label:
+            require(bool((keys[1] == INVALID_KEY).all()
+                         and (keys[0] != INVALID_KEY).any()),
+                    "raster_direct: a pose behind the camera drew pixels")
 
 
 def write_ply(path: Path, verts: np.ndarray, faces: np.ndarray,
@@ -825,12 +925,11 @@ def main() -> int:
     # the depth-only ROI batch (and the full-frame observation render), the
     # colour ROI batch and the colour full-frame batch.
     depth = problem(dev)
-    results, _ = check_kernels(depth, DEPTH, "scoring batch")
+    results, _ = check_kernels(depth, DEPTH, ROI_CASE)
     with recorded_kernel_calls() as frame_calls:
         depth.env.render_composite(depth.gt)
     sync()
-    kernel_phase("raster_direct", frame_calls["raster_direct"],
-                 "observation 640x480 stride 1")
+    kernel_phase("raster_direct", frame_calls["raster_direct"], FRAME_CASE)
     # Every kernel of a colour batch is held against its twin there too; the
     # {"kernels"} line reports the raster and ICP from the depth batch.
     color_roi = problem(dev, use_color=True)
@@ -840,7 +939,7 @@ def main() -> int:
     color_full = problem(dev, use_color=True, roi_size=0)
     results["cost_fused_color"] = check_kernels(
         color_full, ("raster_direct", "icp_fused", "cost_fused_color"),
-        "colour full-frame batch")[0]["cost_fused_color"]
+        FULL_CASE)[0]["cost_fused_color"]
     # The coefficient-table and bin rasters (kernel_backend "pallas",
     # "pallas_bin") at the depth ROI and colour full-frame batches, each
     # against its twin; then the A/B of the three rasters. The {"kernels"}
@@ -902,6 +1001,9 @@ def main() -> int:
     results["nn1_batch"] = check_kernels(
         gicp, ("raster_direct", "nn1_batch", "cost_fused"),
         "gicp batch")[0]["nn1_batch"]
+    # The 1-NN kernel and the direct raster at edge shapes.
+    nn1_edge_cases(dev)
+    raster_edge_cases()
 
     # 4. The slices on the card, and their first N_CPU poses on the CPU.
     check_slice(depth, "depth ROI")
@@ -958,7 +1060,7 @@ def main() -> int:
         out = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": count,
                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-               "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+               "device_ms": res["device_ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
         if mode:
             out["mode"] = mode

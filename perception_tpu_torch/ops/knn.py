@@ -58,6 +58,8 @@ def launch_kernel(query: torch.Tensor, ref4: torch.Tensor
     build.check(ref4, "ref4", torch.float32, (n, s, 4), dev)
     if n > 65535:
         raise ValueError(f"nn1_batch kernel: N={n} poses exceed the grid")
+    if ref4.data_ptr() % 16:
+        raise ValueError("nn1_batch kernel: ref4 is not 16-byte aligned")
     dist = torch.empty((n, p), dtype=torch.float32, device=dev)
     idx = torch.empty((n, p), dtype=torch.int32, device=dev)
     build.launch("pt_nn1_batch", build.ptr(query), build.ptr(ref4), n, p, s,
