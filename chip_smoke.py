@@ -18,10 +18,13 @@ requests through the port's HTTP service on five paths (depth ROI, colour
 ROI, colour full frame, real-sensor profile, gicp), and runs the `localize`
 CLI on the bench scene written as files (PLY models, PNG images, poses.txt,
 a JSON config) with kernel_backend "pallas_bin" and "pallas", checking the
-detections against the ground truth. The 1-NN kernel and the direct raster
-are also held against their twins at edge shapes (several reference tiles,
-ties, a pose with no valid reference; one pose, a 24x24 ROI, T = 200,
-T = 1024 at 640x480 stride 1, a pose behind the camera). Last, it traces
+detections against the ground truth. The 1-NN kernel, the direct raster,
+the fused ICP (every mode) and the depth-only cost are also held against
+their twins at edge shapes (several reference tiles, ties, a pose with no
+valid reference; one pose, a 24x24 ROI, T = 200, T = 1024 at 640x480
+stride 1, a pose behind the camera; poses without a valid target or
+source, targets at max_correspondence / sensor_resolution +-1 ulp, N = 1,
+N = 13, P = 77 with S = 45, a cost with P = 15000). Last, it traces
 one depth, noisy and gicp batch with torch.profiler (device busy time, top
 ops). A kernel's `ms` is one launch between two CUDA events, the host's
 enqueue of it included; its `device_ms` is the device alone (a device spin
@@ -40,7 +43,10 @@ are counted from the kernels' sources (the *_OPS constants below); the
 rasters count the pixels inside each drawn triangle's screen bounding box
 (the coefficient-table raster without the setup, which it does not run),
 ICP the iterations and association sweeps each pose of this run ran, the
-colour gate the points of this run that reach it.
+colour gate the points of this run that reach it. For the ICP and the
+depth-only cost, `bound_valid_ms` counts the same work over valid (point,
+target) pairs only, with `valid_pair_share` their share of the dense
+pairs.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import dataclasses
 import faulthandler
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -168,9 +175,15 @@ DEPTH = ("raster_direct", "icp_fused", "cost_fused")
 RASTERS = {"auto": "raster_direct", "pallas": "raster_keys",
            "pallas_bin": "raster_bin"}
 REPO = Path(__file__).resolve().parent
-# (kernel, case) -> the prepared inputs kernel_phase held it on.
+# (kernel, case) -> the prepared inputs kernel_phase held it on, and the
+# wrapper call they were prepared from.
 INPUTS: dict[tuple[str, str], tuple] = {}
+CALLS: dict[tuple[str, str], tuple] = {}
 ROI_CASE = "scoring batch"
+NOISY_CASE = "noisy batch"
+# ICP mode -> the case its kernel phase ran (the batch and scorer mode).
+ICP_CASES = {"p2p": ROI_CASE, "exact": NOISY_CASE,
+             **{m: f"{NOISY_CASE}, icp {m}" for m in ("d2d", "sym", "adaptive")}}
 FULL_CASE = "colour full-frame batch"
 FRAME_CASE = "observation 640x480 stride 1"
 
@@ -331,6 +344,31 @@ def work(name: str, pargs: tuple, pkw: dict, out, twin_extra) -> tuple:
     return ops, moved
 
 
+def valid_work(name: str, pargs: tuple, pkw: dict, twin_extra):
+    """(float32 operations, share of the dense pairs) counting only valid
+    (point, target) pairs, for the kernels that sweep only those: ICP's
+    association sweeps and per-point terms over its valid sources, the cost's
+    distances over its valid points (cadd <= 0). None for other kernels."""
+    if name == "icp_fused":
+        src, _, sadd, tgt = pargs
+        iters, sweeps = twin_extra
+        nv = (sadd < float("inf")).sum(dim=1).double().cpu()
+        nt = (tgt[..., 7] < 1e30).sum(dim=1).double().cpu()
+        pairs = (sweeps.double().cpu() * nv * nt).sum().item()
+        dense = sweeps.double().sum().item() * src.shape[1] * tgt.shape[1]
+        ops = (pairs * ICP_PAIR_OPS + (iters.double().cpu() * nv).sum().item()
+               * ICP_POINT_OPS[pkw["mode"]])
+        return ops, pairs / max(dense, 1.0)
+    if name == "cost_fused":
+        cloud, cadd, tgt4 = pargs
+        nv = (cadd <= 0.0).sum(dim=1).double()
+        nt = (tgt4[..., 3] == 0.0).sum(dim=1).double()
+        pairs = (nv * nt).sum().item()
+        return (pairs * COST_PAIR_OPS,
+                pairs / (cloud.shape[0] * cloud.shape[1] * tgt4.shape[1]))
+    return None
+
+
 def gated_points(pargs: tuple, pkw: dict) -> int:
     """Points of a colour-kernel call that evaluate CIEDE2000: close to
     their winner and not explain-only."""
@@ -365,7 +403,7 @@ def compare(name: str, kernel_out, twin_out) -> dict:
     same = torch.stack([a == b for a, b in zip(kernel_out, twin_out)]).all(0)
     err = max((a - b).abs().max().item() for a, b in zip(kernel_out, twin_out))
     frac = same.float().mean().item()
-    require(frac >= 0.999, f"{name} counts equal on {frac:.4f} < 0.999")
+    require(frac == 1.0, f"{name} counts equal on {frac:.6f}")
     return {"equal_frac": frac, "max_abs_err": err, "err_unit": "count"}
 
 
@@ -390,6 +428,7 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
     args, kwargs = call
     pargs, pkw = k.prepare(*args, **kwargs)
     INPUTS[name, label] = pargs, pkw
+    CALLS[name, label] = call
     out_k = k.launch(*pargs, **pkw)
     sync()
     extra = None
@@ -418,6 +457,10 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
     result.update(ops=ops, bytes=moved, bound_ms=max(t_ops, t_bytes),
                   bound_by="operations" if t_ops >= t_bytes else "bytes",
                   library_ms=library_ms(name, pargs), **iterations)
+    valid = valid_work(name, pargs, pkw, extra)
+    if valid is not None:
+        result.update(bound_valid_ms=max(valid[0] / FP32_FLOPS * 1e3, t_bytes),
+                      valid_pair_share=valid[1])
     shapes = [list(a.shape) for a in pargs if isinstance(a, torch.Tensor)]
     emit({"phase": "kernel", "kernel": name, "case": label,
           "shapes": shapes, **result})
@@ -782,6 +825,115 @@ def raster_edge_cases() -> None:
                     "raster_direct: a pose behind the camera drew pixels")
 
 
+def ulp_steps(v: torch.Tensor, steps: int) -> torch.Tensor:
+    """The nonzero entries of v moved by `steps` float32 ulps away from zero
+    (towards it if steps < 0)."""
+    toward = (torch.where(v > 0, math.inf, -math.inf) if steps > 0
+              else torch.zeros_like(v))
+    out = v.clone()
+    for _ in range(abs(steps)):
+        out = torch.where(out == 0, out, torch.nextafter(out, toward))
+    return out
+
+
+def boundary_rows(points: torch.Tensor, radius: float) -> torch.Tensor:
+    """Targets at `radius` from each of 8 points, along an axis and along the
+    diagonal, exactly and one ulp either side (two per point, mirrored)."""
+    dev = points.device
+    axis = torch.tensor([radius, 0.0, 0.0], device=dev)
+    diag = torch.full((3,), radius / math.sqrt(3.0), device=dev)
+    offs = [ulp_steps(o, k) for o in (axis, diag) for k in (0, 1, -1)]
+    offs += [torch.tensor([0.0, -radius, 0.0], device=dev),
+             torch.tensor([0.0, 0.0, radius], device=dev)]
+    rows = [torch.stack([points[k] + o, points[k] - o])
+            for k, o in enumerate(offs)]
+    return torch.cat(rows)                          # [16, 3]
+
+
+def icp_edge_cases() -> None:
+    """The fused ICP against its twin at edge inputs, in every mode (from
+    the inputs each mode's batch handed the wrapper): 13 in-view poses (not
+    a multiple of the adaptive group of 8), one without a valid target, one
+    without a valid source, one whose targets sit at max_correspondence
+    from its sources (axis and diagonal, +-1 ulp), one with every target
+    twice (exact ties); N = 1; P = 77 and S = 45 (not multiples of 32)."""
+    for mode, label in ICP_CASES.items():
+        (src, valid, tgt, nrm), kw = CALLS["icp_fused", label]
+        keep = torch.nonzero(valid.any(dim=1)).flatten()[:13]
+        src, valid, tgt = src[keep].clone(), valid[keep].clone(), \
+            tgt[keep].clone()
+        nrm = None if nrm is None else nrm[keep].clone()
+        tgt[1, :, 7] = 1e30                          # no valid target
+        valid[2] = False                             # no valid source
+        first = torch.nonzero(valid[3]).flatten()[:8]
+        xyz = boundary_rows(src[3, first], kw["max_correspondence"])
+        normals = tgt[3, :16, 3:6]
+        tgt[3, :16] = icp_fused.pack_targets(
+            xyz, torch.ones(16, dtype=torch.bool, device=xyz.device), normals)
+        tgt[4, 1::2] = tgt[4, 0:-1:2]                # every target twice
+        cases = [("13 poses: no target, no source, boundary, ties",
+                  (src, valid, tgt, nrm)),
+                 ("N=1", (src[:1], valid[:1], tgt[:1],
+                          None if nrm is None else nrm[:1])),
+                 ("P=77 S=45", (src[:, :77].contiguous(),
+                                valid[:, :77].contiguous(),
+                                tgt[:, :45].contiguous(),
+                                None if nrm is None
+                                else nrm[:, :77].contiguous()))]
+        for case, args in cases:
+            pargs, pkw = icp_fused.prepare_inputs(*args, **kw)
+            out = edge_phase("icp_fused", f"{mode}: {case}", pargs, pkw)
+            if case.startswith("13"):
+                eye = torch.eye(4, device=out.device)
+                require(bool((out[1] == eye).all() and (out[2] == eye).all()),
+                        f"icp_fused {mode}: an empty pose moved")
+
+
+def cost_edge_cases() -> None:
+    """The depth-only cost kernel against its twin at edge inputs, from the
+    depth batch's call: 13 poses, one without a valid target, one without a
+    valid point, one with targets at sensor_resolution from its points
+    (axis and diagonal, +-1 ulp), one with every target twice (exact ties);
+    N = 1; P = 77 and S = 45 (not multiples of 32); P = 15000 (the points
+    staged in several chunks)."""
+    (cloud, cvalid, txyz, tvalid, res), kw = CALLS["cost_fused", ROI_CASE]
+    expl = kw.get("cloud_explain_only")
+    keep = torch.nonzero(cvalid.any(dim=1) & tvalid.any(dim=1)).flatten()[:13]
+    cloud, cvalid, txyz, tvalid = (a[keep].clone() for a in
+                                   (cloud, cvalid, txyz, tvalid))
+    expl = None if expl is None else expl[keep].clone()
+    tvalid[0] = False                                # no valid target
+    cvalid[1] = False                                # no valid point
+    real = cvalid[2] if expl is None else cvalid[2] & ~expl[2]
+    real = torch.nonzero(real).flatten()[:8]
+    txyz[2, :16] = boundary_rows(cloud[2, real], res)
+    tvalid[2, :16] = True
+    txyz[3, 1::2] = txyz[3, 0:-1:2]                  # every target twice
+    tvalid[3, 1::2] = tvalid[3, 0:-1:2]
+    full = (cloud, cvalid, txyz, tvalid, res, expl)
+    # P = 15000 (several staged chunks): each cloud repeated, each copy
+    # shifted by 3 mm along x.
+    shift = torch.zeros((12, 1, 3), device=cloud.device)
+    shift[:, 0, 0] = torch.arange(12, device=cloud.device) * 0.003
+    big = (cloud[:, None] + shift).reshape(cloud.shape[0], -1, 3)
+    cases = [("13 poses: no target, no point, boundary, ties", full),
+             ("N=1", tuple(a[:1] if isinstance(a, torch.Tensor) else a
+                           for a in full)),
+             ("P=77 S=45", (cloud[:, :77], cvalid[:, :77], txyz[:, :45],
+                            tvalid[:, :45], res,
+                            None if expl is None else expl[:, :77])),
+             ("P=15000", (big[:, :15000], cvalid.repeat(1, 12)[:, :15000],
+                          txyz, tvalid, res, None if expl is None
+                          else expl.repeat(1, 12)[:, :15000]))]
+    for case, (c, cv, t, tv, r, e) in cases:
+        pargs, pkw = cost_fused.prepare_inputs(c, cv, t, tv, r, e)
+        out = edge_phase("cost_fused", case, pargs, pkw)
+        if case.startswith("13"):
+            require(out[2][0].item() == 0 and out[0][1].item() == 0
+                    and out[2][2].item() > 0,
+                    f"cost_fused edges: counts {[o[:4].tolist() for o in out]}")
+
+
 def write_ply(path: Path, verts: np.ndarray, faces: np.ndarray,
               colors: np.ndarray) -> None:
     """An ASCII PLY mesh with per-vertex colours (rounded to uchar)."""
@@ -963,7 +1115,7 @@ def main() -> int:
     noisy = problem(dev, icp_mode="fused_d2d_exact", sensor="kinect")
     require(noisy.env.env == noisy.env.env.noisy_profile(),
             "the noisy batch runs the real-sensor profile")
-    icp_results, _ = check_kernels(noisy, DEPTH, "noisy batch")
+    icp_results, _ = check_kernels(noisy, DEPTH, NOISY_CASE)
     icp_results = {"exact": icp_results["icp_fused"]}
     with recorded_kernel_calls() as calls:
         noisy.score()
@@ -978,7 +1130,7 @@ def main() -> int:
             ("sym", dict(icp_mode="fused_d2d", icp_d2d_symmetric=True)),
             ("adaptive", dict(icp_mode="fused_d2d", icp_nn_every=0))):
         res, counts = check_kernels(
-            noisy, DEPTH, f"noisy batch, icp {mode}",
+            noisy, DEPTH, ICP_CASES[mode],
             cfg=dataclasses.replace(noisy.cfg, **change), only=("icp_fused",))
         icp_results[mode] = res["icp_fused"]
         icp_launches[mode] = counts["icp_fused"]
@@ -1001,9 +1153,11 @@ def main() -> int:
     results["nn1_batch"] = check_kernels(
         gicp, ("raster_direct", "nn1_batch", "cost_fused"),
         "gicp batch")[0]["nn1_batch"]
-    # The 1-NN kernel and the direct raster at edge shapes.
+    # Every redesigned kernel at edge shapes.
     nn1_edge_cases(dev)
     raster_edge_cases()
+    icp_edge_cases()
+    cost_edge_cases()
 
     # 4. The slices on the card, and their first N_CPU poses on the CPU.
     check_slice(depth, "depth ROI")
@@ -1064,6 +1218,9 @@ def main() -> int:
                "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
         if mode:
             out["mode"] = mode
+        if "bound_valid_ms" in res:
+            out.update(bound_valid_ms=res["bound_valid_ms"],
+                       valid_pair_share=res["valid_pair_share"])
         return out
 
     print(json.dumps({"kernels": [

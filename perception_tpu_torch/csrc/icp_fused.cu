@@ -13,11 +13,11 @@
 //          W = inv(2I - (1-eps)(nt nt^T + ns' ns'^T)) by adjugate, H = J^T W J,
 //          Marquardt damping (:263-330, :413-424).
 // Per association sweep: the expanded-form squared distance
-// max(|t|^2 + tadd - 2 t.c + |c|^2, 0) from each source point to the S
-// cropped targets and a packed (distance, index) min; the winner's plane (and
-// point in the d2d modes) is cached in shared memory for the iterations that
-// do not re-associate. Then the normal-equation sums, damping, an unrolled
-// 6x6 Cholesky, the Rodrigues step and compose, best-RMSE tracking, and the
+// max(|t|^2 + tadd - 2 t.c + |c|^2, 0) from each source point to the cropped
+// targets and a packed (bits(d) & ~idx_mask) | index min, whose winner and
+// quantised distance are cached for the iterations that do not
+// re-associate. Then the normal-equation sums, damping, an unrolled 6x6
+// Cholesky, the Rodrigues step and compose, best-RMSE tracking, and the
 // step-norm and stagnation exits.
 //
 // Adaptive association (nn_every = 0) re-associates when some active pose of
@@ -30,16 +30,57 @@
 // the whole group is done; the blocks past N (the grid is rounded up to 8)
 // count as done from the start.
 //
-// What bounds it on the H100: the association sweep, P x S distance
-// evaluations of ~8 flops per pose and sweep, plus the per-point terms (~120
-// flops in p2p, ~330 in exact) and the serial per-iteration solve. The simple
-// design: one block per pose, 256 threads (one per source point at P = 256),
-// targets in shared memory as association rows (-2t, |t|^2 + tadd), plane rows
-// (n, n.t) and point rows, so the winner's attributes are exact float32 reads
-// (the TPU kernel's bf16 hi/lo one-hot recovery is not needed); the sums
-// reduce by warp shuffles, then one thread solves and updates the pose state.
-// The d2d modes make two reduction passes per iteration: the centroid
-// (count, sum w c) first, then the terms about it.
+// What bounds it on the H100. The dense work is the association sweep, P x S
+// distance evaluations of ~10 non-FMA instructions per pose and sweep (5.3
+// sweeps per pose in p2p, 10.3 in exact on the bench), then per iteration
+// the per-point terms (~120 flops in p2p, ~330 in exact), a reduction of 29
+// to 71 sums and a serial solve (Cholesky, float64 sin / cos, compose) of a
+// few thousand cycles of latency, ~10 iterations per pose and up to 20. On
+// the bench a third of the poses has no valid source and about half of the
+// sources of the others are valid, so only ~35% of the dense pairs can
+// matter. The design:
+//   * the valid sources (sadd finite) are compacted once per pose into an
+//     index list, and the valid targets (tadd below the pack's invalid
+//     additive 1e30) into rows j < nt of association (-2t, |t|^2 + tadd)
+//     and plane (n, n.t) values, both in order, by warp ballots. The key
+//     packs the row j instead of the target index: rows keep the targets'
+//     order, so the min key names the same target as the dense key, whose
+//     min over any subset that holds the winner is the dense min (a valid
+//     target always beats an invalid one, d ~ 1e30). The d2d modes take
+//     the winner's point as -0.5 * (-2t), which is t exactly, so no point
+//     rows are kept: 32 (S + 1) + 8 P bytes of shared memory per pose;
+//   * a sweep runs only valid x valid pairs, register-blocked: each thread
+//     holds KQ = ceil(nv / threads) <= 4 compacted sources, so one
+//     shared-memory read of a target row feeds KQ independent distance
+//     chains and the sources take one pass for nv <= 4 x threads (256);
+//   * the cache holds the winner's row and quantised distance per source,
+//     in the source's own slot; invalid sources, and valid ones without a
+//     valid target, keep the placeholder set at block start: the zero row
+//     nt and distance +inf. Their weight is 0 as the dense association's
+//     (an invalid winner has d ~ 1e30), and every term is a product with
+//     the weight, so each adds a signed zero to a sum that starts at +0:
+//     no bit of any sum changes;
+//   * the per-point stages read each source a round ahead of its use;
+//   * two warps per pose (kWarps = 2, 64 threads instead of 256): the
+//     terms stage keeps one point per thread and round (p = tid, tid + 64,
+//     ...), the sums reduce by warp shuffles and one add of the two warp
+//     sums, and thread 0 solves. 6 to 12 poses are resident per SM (their
+//     registers bound it), so a 2048-pose batch runs in two to three waves
+//     instead of eight.
+// Measured on the H100 (PERF.md): the dense sweep at the same two warps per
+// pose (the previous kernel at 64 threads) takes 1.3-1.7x this design's
+// time in every mode; the block shape alone does not give the gain. With
+// only valid pairs swept, the kernel is bound by the latency of its longest
+// poses, not by its instruction rate.
+// Per pose an iteration is mostly the sweep, then the serial solve of thread
+// 0, then the terms and their reduction; the poses that run all 20
+// iterations finish long after the mean pose while the SMs idle. One warp
+// per pose fits every pose in one wave but leaves a long pose a single warp;
+// four warps cut the poses resident per SM; two warps were the fastest in
+// the served modes (exact, p2p) and within a few percent in d2d and sym.
+// The twin (ops/icp_fused.py, _kernel_order_sum) sums in this order: each of
+// the 32 * kWarps threads adds its points in turn, the warp's lanes combine
+// by shuffles at offsets 16, 8, 4, 2, 1, then the warp sums in order.
 // Built with --fmad=false so every sum rounds as in the PyTorch twin.
 
 #include <cooperative_groups.h>
@@ -49,9 +90,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 2;   // warps per pose (the twin's _THREADS / 32)
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxKQ = 4;   // sources per thread in a sweep, at most
 constexpr int kGroup = 8;   // poses per adaptive-association group
+constexpr float kInvalidAdd = 1e30f;   // pack_targets' additive of invalid targets
 
 enum Mode { kP2P = 0, kD2D = 1, kSym = 2, kExact = 3 };
 
@@ -62,12 +106,6 @@ enum Mode { kP2P = 0, kD2D = 1, kSym = 2, kExact = 3 };
 template <int M>
 struct Sums {
   static constexpr int value = M == kSym ? 71 : (M == kD2D ? 44 : 29);
-};
-
-// Cached association per point: n, n.t, dmin, and q in the d2d modes.
-template <int M>
-struct CacheRows {
-  static constexpr int value = M == kP2P ? 5 : 8;
 };
 
 struct Job {
@@ -95,34 +133,132 @@ struct PoseState {
   float ext;        // adaptive: max |a| over the points
   int need;         // adaptive: the group re-associates this iteration
   int stop;         // adaptive: the whole group is done
+  int nv;           // valid (compacted) sources
+  int nt;           // valid (compacted) targets
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
+    v += __shfl_down_sync(kFull, v, off);
   }
   return v;
 }
 
-// Block sum of K per-thread values: a warp-shuffle tree, then the warp sums
-// in order. s_red holds kWarps * K floats; the result lands in s_out[0..K).
+// Block sum of K per-thread values in the twin's order: a warp-shuffle tree,
+// then the warp sums in order. Thread 0 writes the K totals to s_out; s_red
+// holds kWarps * K floats.
 template <int K>
 __device__ __forceinline__ void block_sum(float (&acc)[K], float* s_red,
                                           float* s_out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int q = 0; q < K; ++q) {
-    const float v = warp_sum(acc[q]);
-    if (lane == 0) s_red[warp * K + q] = v;
+  for (int q = 0; q < K; ++q) acc[q] = warp_sum(acc[q]);
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) s_red[warp * K + q] = acc[q];
   }
   __syncthreads();
-  for (int q = threadIdx.x; q < K; q += kThreads) {
-    float v = s_red[q];
-    for (int w = 1; w < kWarps; ++w) v += s_red[w * K + q];
-    s_out[q] = v;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < K; ++q) {
+      float v = s_red[q];
+      for (int w = 1; w < kWarps; ++w) v += s_red[w * K + q];
+      s_out[q] = v;
+    }
   }
-  __syncthreads();
+}
+
+// Ordered compaction by warp 0: the indices i < n with keep(i), ascending,
+// through emit(slot, i). Returns the count (in warp 0's lanes).
+template <class Keep, class Emit>
+__device__ __forceinline__ int compact(int n, Keep keep, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  int count = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const bool k = i < n && keep(i);
+    const unsigned m = __ballot_sync(kFull, k);
+    if (k) emit(count + __popc(m & ((1u << lane) - 1u)), i);
+    count += __popc(m);
+  }
+  return count;
+}
+
+// One source point's inputs (and normal, with NORMALS), loaded a round
+// ahead of its use so the global-memory latency hides behind the round
+// before it.
+template <bool NORMALS>
+struct SourceStream {
+  const float *sp, *sn, *sa;
+  int P;
+  float x = 0.0f, y = 0.0f, z = 0.0f, a = 0.0f;
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  __device__ SourceStream(const float* sp_, const float* sn_, const float* sa_,
+                          int P_)
+      : sp(sp_), sn(sn_), sa(sa_), P(P_) {
+    load(threadIdx.x);
+  }
+  __device__ __forceinline__ void load(int p) {
+    if (p < P) {
+      x = sp[3 * p];
+      y = sp[3 * p + 1];
+      z = sp[3 * p + 2];
+      a = sa[p];
+      if (NORMALS) {
+        nx = sn[3 * p];
+        ny = sn[3 * p + 1];
+        nz = sn[3 * p + 2];
+      }
+    }
+  }
+};
+
+// One association pass over the compacted sources base + k * kThreads + tid
+// (k < KQ) against every compacted target row j: the packed min of
+// (bits(d) & ~idx_mask) | j per source, then its winner's row and quantised
+// distance into the cache. The rows keep the targets' order, so the
+// compacted index breaks ties as the original one does.
+template <int KQ>
+__device__ __forceinline__ void sweep(int base, int nv, int nt,
+                                      const unsigned short* s_src,
+                                      const float* sp, const float (&r)[12],
+                                      const float4* s_tab, int idx_mask,
+                                      unsigned short* s_win, float* s_dmin) {
+  float cx[KQ], cy[KQ], cz[KQ], cc[KQ];
+  int p[KQ], pmin[KQ];
+#pragma unroll
+  for (int k = 0; k < KQ; ++k) {
+    const int i = base + k * kThreads + (int)threadIdx.x;
+    p[k] = i < nv ? s_src[i] : -1;
+    float sx = 0.0f, sy = 0.0f, sz = 0.0f;
+    if (p[k] >= 0) {
+      sx = sp[3 * p[k]];
+      sy = sp[3 * p[k] + 1];
+      sz = sp[3 * p[k] + 2];
+    }
+    cx[k] = r[0] * sx + r[1] * sy + r[2] * sz + r[9];
+    cy[k] = r[3] * sx + r[4] * sy + r[5] * sz + r[10];
+    cz[k] = r[6] * sx + r[7] * sy + r[8] * sz + r[11];
+    cc[k] = cx[k] * cx[k] + cy[k] * cy[k] + cz[k] * cz[k];
+    pmin[k] = 0x7fffffff;
+  }
+#pragma unroll 4
+  for (int j = 0; j < nt; ++j) {
+    const float4 tb = s_tab[j];
+#pragma unroll
+    for (int k = 0; k < KQ; ++k) {
+      const float d = fmaxf(
+          tb.w + tb.x * cx[k] + tb.y * cy[k] + tb.z * cz[k] + cc[k], 0.0f);
+      pmin[k] = min(pmin[k], (__float_as_int(d) & ~idx_mask) | j);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < KQ; ++k) {
+    if (p[k] >= 0) {
+      s_win[p[k]] = (unsigned short)(pmin[k] & idx_mask);
+      s_dmin[p[k]] = __int_as_float(pmin[k] & ~idx_mask);
+    }
+  }
 }
 
 // One Gauss-Newton update of the pose state from the reduced sums, as the
@@ -285,14 +421,18 @@ __device__ void solve_and_update(const float* sums, PoseState& st,
 template <int M, bool ADAPTIVE>
 __global__ void __launch_bounds__(kThreads) icp_fused_kernel(const Job jb) {
   constexpr int NS = Sums<M>::value;
-  constexpr int NC = CacheRows<M>::value;
+  constexpr bool kPoint = M != kP2P;   // the d2d modes read the winner's point
   const int P = jb.P, S = jb.S;
+  // Compacted target rows j < nt, in the targets' order, and a zero row nt
+  // (the placeholder): association (-2t, |t|^2 + tadd) and plane (n, n.t).
+  // The d2d modes take the winner's point t as -0.5 * (-2t), exactly.
   extern __shared__ float4 smem4[];
-  float4* s_tab = smem4;                          // (-2t, |t|^2 + tadd)
-  float4* s_plane = smem4 + S;                    // (n, n.t)
-  float4* s_pt = smem4 + 2 * S;                   // (t, 0), d2d modes
-  float* s_assoc =
-      reinterpret_cast<float*>(smem4 + (M == kP2P ? 2 : 3) * S);  // [NC][P]
+  float4* s_tab = smem4;                              // [S + 1]
+  float4* s_plane = smem4 + (S + 1);                  // [S + 1]
+  float* s_dmin = reinterpret_cast<float*>(s_plane + (S + 1));   // [P]
+  unsigned short* s_win =                             // [P] cached row
+      reinterpret_cast<unsigned short*>(s_dmin + P);
+  unsigned short* s_src = s_win + P;                  // [P] valid sources
   __shared__ float s_red[kWarps * NS];
   __shared__ float s_sums[NS];
   __shared__ float s_ext[kWarps];
@@ -303,35 +443,53 @@ __global__ void __launch_bounds__(kThreads) icp_fused_kernel(const Job jb) {
   const bool real = n < jb.N;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  if (real) {
-    const float* tg = jb.tgt + (size_t)n * S * 8;
-    for (int s = tid; s < S; s += kThreads) {
-      const float tx = tg[8 * s], ty = tg[8 * s + 1], tz = tg[8 * s + 2];
-      s_tab[s] = make_float4(-2.0f * tx, -2.0f * ty, -2.0f * tz,
-                             tx * tx + ty * ty + tz * tz + tg[8 * s + 7]);
-      s_plane[s] = make_float4(tg[8 * s + 3], tg[8 * s + 4], tg[8 * s + 5],
-                               tg[8 * s + 6]);
-      if (M != kP2P) s_pt[s] = make_float4(tx, ty, tz, 0.0f);
-    }
-  }
-  if (tid == 0) {
-    for (int i = 0; i < 12; ++i) {
-      const float v = (i == 0 || i == 4 || i == 8) ? 1.0f : 0.0f;
-      st.cur[i] = v;
-      st.best[i] = v;
-    }
-    st.best_rmse = __int_as_float(0x7f800000);
-    st.streak = 0.0f;
-    st.done = real ? 0.0f : 1.0f;
-    st.accum = 0.0f;
-    st.cen[0] = st.cen[1] = st.cen[2] = 0.0f;
-    st.ext = 0.0f;
-  }
-  __syncthreads();
-
+  const float inf = __int_as_float(0x7f800000);
   const float* sp = jb.src + (size_t)n * P * 3;
   const float* sn = jb.snrm + (size_t)n * P * 3;   // read in sym / exact only
   const float* sa = jb.sadd + (size_t)n * P;
+  const float* tg = jb.tgt + (size_t)n * S * 8;
+  if (warp == 0) {
+    int nt = 0, nv = 0;
+    if (real) {
+      nt = compact(
+          S, [&](int s) { return tg[8 * s + 7] < kInvalidAdd; },
+          [&](int slot, int s) {
+            const float tx = tg[8 * s], ty = tg[8 * s + 1], tz = tg[8 * s + 2];
+            s_tab[slot] = make_float4(-2.0f * tx, -2.0f * ty, -2.0f * tz,
+                                      tx * tx + ty * ty + tz * tz + tg[8 * s + 7]);
+            s_plane[slot] = make_float4(tg[8 * s + 3], tg[8 * s + 4],
+                                        tg[8 * s + 5], tg[8 * s + 6]);
+          });
+      nv = compact(
+          P, [&](int p) { return sa[p] < inf; },
+          [&](int slot, int p) { s_src[slot] = (unsigned short)p; });
+    }
+    if (lane == 0) {
+      s_tab[nt] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      s_plane[nt] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int i = 0; i < 12; ++i) {
+        const float v = (i == 0 || i == 4 || i == 8) ? 1.0f : 0.0f;
+        st.cur[i] = v;
+        st.best[i] = v;
+      }
+      st.best_rmse = inf;
+      st.streak = 0.0f;
+      st.done = real ? 0.0f : 1.0f;
+      st.accum = 0.0f;
+      st.cen[0] = st.cen[1] = st.cen[2] = 0.0f;
+      st.ext = 0.0f;
+      st.nt = nt;
+      st.nv = nv;
+    }
+  }
+  __syncthreads();
+  const int nv = st.nv, nt = st.nt;
+  for (int p = tid; p < P; p += kThreads) {
+    s_win[p] = (unsigned short)nt;
+    s_dmin[p] = inf;
+  }
+  __syncthreads();
+
   const int idx_mask = jb.idx_mask;
   for (int k = 0;; ++k) {
     bool assoc_now;
@@ -362,91 +520,92 @@ __global__ void __launch_bounds__(kThreads) icp_fused_kernel(const Job jb) {
       if (st.done > 0.5f || k >= jb.max_iterations) break;
       assoc_now = jb.nn_every <= 1 || (k % jb.nn_every) == 0;
     }
-    const float* c = st.cur;
+    float c[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) c[i] = st.cur[i];
     const float r00 = c[0], r01 = c[1], r02 = c[2];
     const float r10 = c[3], r11 = c[4], r12 = c[5];
     const float r20 = c[6], r21 = c[7], r22 = c[8];
     const float t0 = c[9], t1 = c[10], t2 = c[11];
 
-    // Nearest target of the point at c: the plane (and point) of the packed
-    // (distance, index) winner and its quantised distance, into the cache.
-    auto associate = [&](int p, float cx, float cy, float cz) {
-      const float cc = cx * cx + cy * cy + cz * cz;
-      int pmin = 0x7fffffff;
-      for (int s = 0; s < S; ++s) {
-        const float4 tb = s_tab[s];
-        const float d =
-            fmaxf(tb.w + tb.x * cx + tb.y * cy + tb.z * cz + cc, 0.0f);
-        pmin = min(pmin, (__float_as_int(d) & ~idx_mask) | s);
+    // Association: valid sources x valid targets, KQ <= 4 sources per
+    // thread, the fewest passes and then the fewest idle slots.
+    if (assoc_now && nt > 0) {
+      for (int base = 0; base < nv;) {
+        const int kq = min(kMaxKQ, (nv - base + kThreads - 1) / kThreads);
+        switch (kq) {
+#define PT_SWEEP(KQ)                                                      \
+  case KQ:                                                                \
+    sweep<KQ>(base, nv, nt, s_src, sp, c, s_tab, idx_mask, s_win, s_dmin); \
+    break;
+          PT_SWEEP(1) PT_SWEEP(2) PT_SWEEP(3) PT_SWEEP(4)
+#undef PT_SWEEP
+        }
+        base += kq * kThreads;
       }
-      const int win = pmin & idx_mask;
-      const float4 pl = s_plane[win];
-      s_assoc[p] = pl.x;
-      s_assoc[P + p] = pl.y;
-      s_assoc[2 * P + p] = pl.z;
-      s_assoc[3 * P + p] = pl.w;
-      s_assoc[4 * P + p] = __int_as_float(pmin & ~idx_mask);
-      if (M != kP2P) {
-        const float4 q = s_pt[win];
-        s_assoc[5 * P + p] = q.x;
-        s_assoc[6 * P + p] = q.y;
-        s_assoc[7 * P + p] = q.z;
-      }
-    };
+    }
+    __syncthreads();
 
-    // d2d modes, pass 1: association, weights and the correspondence
-    // centroid (pallas_icp.py:248-262).
+    // d2d modes, pass 1: weights and the correspondence centroid
+    // (pallas_icp.py:248-262).
     float cenx = 0.0f, ceny = 0.0f, cenz = 0.0f;
-    if constexpr (M != kP2P) {
+    if constexpr (kPoint) {
       float acc4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      SourceStream<false> next(sp, sn, sa, P);
       for (int p = tid; p < P; p += kThreads) {
-        const float sx = sp[3 * p], sy = sp[3 * p + 1], sz = sp[3 * p + 2];
+        const SourceStream<false> cur = next;
+        next.load(p + kThreads);
+        const float sx = cur.x, sy = cur.y, sz = cur.z;
         const float cx = r00 * sx + r01 * sy + r02 * sz + t0;
         const float cy = r10 * sx + r11 * sy + r12 * sz + t1;
         const float cz = r20 * sx + r21 * sy + r22 * sz + t2;
-        if (assoc_now) associate(p, cx, cy, cz);
-        const float w =
-            (s_assoc[4 * P + p] + sa[p]) <= jb.max_corr_sq ? 1.0f : 0.0f;
+        const float w = (s_dmin[p] + cur.a) <= jb.max_corr_sq ? 1.0f : 0.0f;
         acc4[0] += w;
         acc4[1] += cx * w;
         acc4[2] += cy * w;
         acc4[3] += cz * w;
       }
       block_sum<4>(acc4, s_red, s_sums);
-      const float inv_cnt = 1.0f / fmaxf(s_sums[0], 1.0f);
-      cenx = s_sums[1] * inv_cnt;
-      ceny = s_sums[2] * inv_cnt;
-      cenz = s_sums[3] * inv_cnt;
-      __syncthreads();   // s_sums is reused below
+      if (tid == 0) {
+        const float inv_cnt = 1.0f / fmaxf(s_sums[0], 1.0f);
+        st.cen[0] = s_sums[1] * inv_cnt;
+        st.cen[1] = s_sums[2] * inv_cnt;
+        st.cen[2] = s_sums[3] * inv_cnt;
+      }
+      __syncthreads();
+      cenx = st.cen[0];
+      ceny = st.cen[1];
+      cenz = st.cen[2];
     }
 
     float acc[NS];
 #pragma unroll
     for (int q = 0; q < NS; ++q) acc[q] = 0.0f;
     float ext2 = 0.0f;
+    SourceStream<M == kSym || M == kExact> next(sp, sn, sa, P);
     for (int p = tid; p < P; p += kThreads) {
-      const float sx = sp[3 * p], sy = sp[3 * p + 1], sz = sp[3 * p + 2];
+      const auto cur = next;
+      next.load(p + kThreads);
+      const float sx = cur.x, sy = cur.y, sz = cur.z;
       const float cx = r00 * sx + r01 * sy + r02 * sz + t0;
       const float cy = r10 * sx + r11 * sy + r12 * sz + t1;
       const float cz = r20 * sx + r21 * sy + r22 * sz + t2;
-      if (M == kP2P && assoc_now) associate(p, cx, cy, cz);
-      const float nx = s_assoc[p];
-      const float ny = s_assoc[P + p];
-      const float nz = s_assoc[2 * P + p];
-      const float nq = s_assoc[3 * P + p];
-      const float dmin = s_assoc[4 * P + p];
-      const float w = (dmin + sa[p]) <= jb.max_corr_sq ? 1.0f : 0.0f;
+      const int win = s_win[p];
+      const float4 pl = s_plane[win];
+      const float nx = pl.x, ny = pl.y, nz = pl.z, nq = pl.w;
+      const float w = (s_dmin[p] + cur.a) <= jb.max_corr_sq ? 1.0f : 0.0f;
       const float ax = cx - cenx, ay = cy - ceny, az = cz - cenz;
       if (ADAPTIVE) ext2 = fmaxf(ext2, ax * ax + ay * ay + az * az);
       float rx = 0.0f, ry = 0.0f, rz = 0.0f;
       float nsx = 0.0f, nsy = 0.0f, nsz = 0.0f;
-      if (M != kP2P) {
-        rx = cx - s_assoc[5 * P + p];
-        ry = cy - s_assoc[6 * P + p];
-        rz = cz - s_assoc[7 * P + p];
+      if constexpr (kPoint) {
+        const float4 tb = s_tab[win];
+        rx = cx - tb.x * -0.5f;
+        ry = cy - tb.y * -0.5f;
+        rz = cz - tb.z * -0.5f;
       }
       if (M == kSym || M == kExact) {
-        const float snx = sn[3 * p], sny = sn[3 * p + 1], snz = sn[3 * p + 2];
+        const float snx = cur.nx, sny = cur.ny, snz = cur.nz;
         nsx = r00 * snx + r01 * sny + r02 * snz;
         nsy = r10 * snx + r11 * sny + r12 * snz;
         nsz = r20 * snx + r21 * sny + r22 * snz;
@@ -554,7 +713,7 @@ __global__ void __launch_bounds__(kThreads) icp_fused_kernel(const Job jb) {
     if (ADAPTIVE) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        ext2 = fmaxf(ext2, __shfl_down_sync(0xffffffffu, ext2, off));
+        ext2 = fmaxf(ext2, __shfl_down_sync(kFull, ext2, off));
       }
       if (lane == 0) s_ext[warp] = ext2;
       __syncthreads();
@@ -585,11 +744,17 @@ __global__ void __launch_bounds__(kThreads) icp_fused_kernel(const Job jb) {
   }
 }
 
+// Dynamic shared memory at (S, P): the compacted association and plane
+// rows with their zero row, the per-source cache (distance, row) and the
+// valid-source list.
+size_t shared_bytes(int S, int P) {
+  return (size_t)(S + 1) * 32 + (size_t)P * 8;
+}
+
 template <int M, bool ADAPTIVE>
 int run(const Job& jb, cudaStream_t stream) {
   auto kernel = icp_fused_kernel<M, ADAPTIVE>;
-  const size_t smem = (size_t)jb.S * (M == kP2P ? 2 : 3) * sizeof(float4) +
-                      (size_t)jb.P * CacheRows<M>::value * sizeof(float);
+  const size_t smem = shared_bytes(jb.S, jb.P);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -77,6 +77,24 @@ class BenchProblem:
             bank_icp_normals=env._bank_icp_normals,
             bank_tri_lab=env._render_bank_lab)
 
+    def first_call(self, module, attr: str,
+                   cfg: ScorerConfig | None = None) -> tuple:
+        """The (args, kwargs) of the first call that scoring this problem
+        (with `cfg` if given) makes to module.attr."""
+        seen = {}
+        wrapped = getattr(module, attr)
+
+        def record(*args, **kwargs):
+            seen.setdefault("call", (args, kwargs))
+            return wrapped(*args, **kwargs)
+
+        setattr(module, attr, record)
+        try:
+            self.score(cfg=cfg)
+        finally:
+            setattr(module, attr, wrapped)
+        return seen["call"]
+
 
 def convex_blob(rng, radius=0.06, n_pts=600):
     """Convex hull of n_pts jittered points on a sphere."""

@@ -72,7 +72,9 @@ def launch_kernel(cloud: torch.Tensor, cadd: torch.Tensor, tgt4: torch.Tensor,
     build.check(cloud, "cloud_xyz", torch.float32, (n, p, 3), dev)
     build.check(cadd, "cadd", torch.float32, (n, p), dev)
     build.check(tgt4, "tgt4", torch.float32, (n, s, 4), dev)
-    if s * 17 > _MAX_SHARED:
+    # Compacted targets (16 B), explained bits, and the points staged in
+    # chunks of at least one round of 256 (16 B): any P fits.
+    if s * 16 + -(-s // 32) * 4 + 256 * 16 > _MAX_SHARED:
         raise ValueError(f"cost_fused kernel: S={s} targets exceed shared "
                          "memory")
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)

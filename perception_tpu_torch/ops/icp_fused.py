@@ -43,7 +43,7 @@ _INVALID_ADD = 1e30
 # Elements of one (pose, target, point) association block in the twin.
 _TWIN_BLOCK = 1 << 22
 _MAX_SHARED = 227 * 1024
-_THREADS = 256   # threads per block of csrc/icp_fused.cu
+_THREADS = 64    # threads per pose (block) of csrc/icp_fused.cu
 GROUP = 8        # poses per adaptive-association group
 MODES = ("p2p", "d2d", "sym", "exact")
 
@@ -171,10 +171,12 @@ def launch_kernel(src, snrm, sadd, tgt, *, mode, max_iterations, max_corr_sq,
         build.check(snrm, "src_normals", torch.float32, (n, p, 3), dev)
     elif snrm is not None:
         raise ValueError(f"icp_fused kernel: src_normals given in mode {mode}")
-    smem = s * (32 if mode == "p2p" else 48) + p * (20 if mode == "p2p" else 32)
-    if smem > _MAX_SHARED:
+    # Compacted association and plane rows with a zero row, the per-source
+    # cache and the source list (16-bit indices).
+    smem = (s + 1) * 32 + p * 8
+    if smem > _MAX_SHARED or max(s, p) > 0xFFFF:
         raise ValueError(f"icp_fused kernel: S={s}, P={p} need {smem} B of "
-                         f"shared memory (> {_MAX_SHARED})")
+                         f"shared memory (> {_MAX_SHARED}) or 16-bit indices")
     out = torch.empty((n, 4, 4), dtype=torch.float32, device=dev)
     build.launch("pt_icp_fused", build.ptr(src), build.ptr(snrm),
                  build.ptr(sadd), build.ptr(tgt), n, p, s, MODES.index(mode),
@@ -210,10 +212,11 @@ def _associate(cx, cy, cz, tab, attrs, idx_mask):
 
 
 def _kernel_order_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last (point) axis in the kernel's order: each of 256
-    threads adds points p = tid, tid + 256, ... in turn, a warp sums its 32
-    threads by shuffles at offsets 16, 8, 4, 2, 1, and the 8 warp sums are
-    added in order. The twin's sums are then bit-identical to the kernel's."""
+    """Sum over the last (point) axis in the kernel's order: each of the
+    _THREADS threads of a pose adds points p = tid, tid + _THREADS, ... in
+    turn, a warp sums its 32 threads by shuffles at offsets 16, 8, 4, 2, 1,
+    and the warp sums are added in order. The twin's sums are then
+    bit-identical to the kernel's."""
     p = x.shape[-1]
     rounds = -(-p // _THREADS)
     x = torch.nn.functional.pad(x, (0, rounds * _THREADS - p))
