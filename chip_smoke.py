@@ -19,14 +19,16 @@ ROI, colour full frame, real-sensor profile, gicp), and runs the `localize`
 CLI on the bench scene written as files (PLY models, PNG images, poses.txt,
 a JSON config) with kernel_backend "pallas_bin" and "pallas", checking the
 detections against the ground truth. The 1-NN kernel, the direct raster,
-the fused ICP (every mode) and the depth-only cost are also held against
+the fused ICP (every mode) and the three cost kernels are also held against
 their twins at edge shapes (several reference tiles, ties, a pose with no
 valid reference; one pose, a 24x24 ROI, T = 200, T = 1024 at 640x480
 stride 1, a pose behind the camera; poses without a valid target or
 source, targets at max_correspondence / sensor_resolution +-1 ulp, N = 1,
-N = 13, P = 77 with S = 45, a cost with P = 15000). Last, it traces
-one depth, noisy and gicp batch with torch.profiler (device busy time, top
-ops). A kernel's `ms` is one launch between two CUDA events, the host's
+N = 13, P = 77 with S = 45, a cost with P = 15000; for the colour costs
+also only explain-only points, tied targets whose copies fail the gate
+where the originals pass and the reverse, face ids outside [0, T)). Last,
+it traces one depth, noisy and gicp batch with torch.profiler (device busy
+time, top ops). A kernel's `ms` is one launch between two CUDA events, the host's
 enqueue of it included; its `device_ms` is the device alone (a device spin
 queued ahead of the start event, so the host enqueues the launch while the
 card is busy). The launch counts are set to 0 just before each served path or scored
@@ -43,10 +45,10 @@ are counted from the kernels' sources (the *_OPS constants below); the
 rasters count the pixels inside each drawn triangle's screen bounding box
 (the coefficient-table raster without the setup, which it does not run),
 ICP the iterations and association sweeps each pose of this run ran, the
-colour gate the points of this run that reach it. For the ICP and the
-depth-only cost, `bound_valid_ms` counts the same work over valid (point,
-target) pairs only, with `valid_pair_share` their share of the dense
-pairs.
+colour gate the points of this run that reach it. For the ICP and the three
+cost kernels, `bound_valid_ms` counts the same work over valid (point,
+target) pairs only (and the colour gates), with `valid_pair_share` their
+share of the dense pairs.
 """
 
 from __future__ import annotations
@@ -347,8 +349,9 @@ def work(name: str, pargs: tuple, pkw: dict, out, twin_extra) -> tuple:
 def valid_work(name: str, pargs: tuple, pkw: dict, twin_extra):
     """(float32 operations, share of the dense pairs) counting only valid
     (point, target) pairs, for the kernels that sweep only those: ICP's
-    association sweeps and per-point terms over its valid sources, the cost's
-    distances over its valid points (cadd <= 0). None for other kernels."""
+    association sweeps and per-point terms over its valid sources, the three
+    costs' distances over their valid points (cadd <= 0), plus the colour
+    costs' gates. None for other kernels."""
     if name == "icp_fused":
         src, _, sadd, tgt = pargs
         iters, sweeps = twin_extra
@@ -359,12 +362,16 @@ def valid_work(name: str, pargs: tuple, pkw: dict, twin_extra):
         ops = (pairs * ICP_PAIR_OPS + (iters.double().cpu() * nv).sum().item()
                * ICP_POINT_OPS[pkw["mode"]])
         return ops, pairs / max(dense, 1.0)
-    if name == "cost_fused":
-        cloud, cadd, tgt4 = pargs
+    if name.startswith("cost_fused"):
+        cloud, cadd = pargs[:2]
+        tgt4 = pargs[2] if name == "cost_fused" else pargs[-2]
         nv = (cadd <= 0.0).sum(dim=1).double()
         nt = (tgt4[..., 3] == 0.0).sum(dim=1).double()
         pairs = (nv * nt).sum().item()
-        return (pairs * COST_PAIR_OPS,
+        ops = pairs * COST_PAIR_OPS
+        if name != "cost_fused":
+            ops += twin_extra * CIEDE_OPS       # points that reach the gate
+        return (ops,
                 pairs / (cloud.shape[0] * cloud.shape[1] * tgt4.shape[1]))
     return None
 
@@ -934,6 +941,114 @@ def cost_edge_cases() -> None:
                     f"cost_fused edges: counts {[o[:4].tolist() for o in out]}")
 
 
+# Colour kernel -> the names of its prepared arguments.
+COLOR_FIELDS = {
+    "cost_fused_color": ("cloud", "cadd", "lab", "tgt4", "tlab"),
+    "cost_fused_color_tri": ("cloud", "cadd", "tri", "mids", "bank_lab",
+                             "tgt4", "tlab"),
+}
+
+
+def color_edge_cases() -> None:
+    """Both colour cost kernels against their twins at edge inputs, from the
+    inputs the colour ROI (face ids) and full-frame (Lab) batches handed
+    them: 13 poses, of which 0 has no valid target, 1 no valid point, 2 only
+    explain-only points, 3 targets at sensor_resolution from its real points
+    (axis and diagonal, +-1 ulp), 4 and 5 every target twice with one
+    rendered Lab per pose, the original's Lab passing the gate and the
+    copy's failing (4) or the reverse (5), so that a winner other than the
+    lowest index changes the counts, 6 face ids -1, T and T + 7 on its real
+    points (zero Lab in the Lab form); N = 1 (pose 4); P = 77 and S = 45;
+    P = 15000 (poses 3-4, the points staged in several chunks)."""
+    for name, label in (("cost_fused_color_tri", "colour ROI batch"),
+                        ("cost_fused_color", FULL_CASE)):
+        names = COLOR_FIELDS[name]
+        pargs, pkw = INPUTS[name, label]
+        f = dict(zip(names, pargs))
+        per_point = ("cloud", "cadd", "tri" if "tri" in f else "lab")
+        keep = torch.nonzero(((f["cadd"] == 0).sum(dim=1) > 64)
+                             & (f["tgt4"][..., 3] == 0).any(dim=1)).flatten()
+        require(len(keep) >= 13, f"{name} edges: {len(keep)} poses to use")
+        f = {k: v if k == "bank_lab" else v[keep[:13]].clone()
+             for k, v in f.items()}
+        dev = f["cloud"].device
+        real = f["cadd"] == 0.0
+        f["tgt4"][0, :, 3] = math.inf                    # no valid target
+        f["cadd"][1] = math.inf                          # no valid point
+        f["cadd"][2] = torch.where(f["cadd"][2] <= 0, -1.0, math.inf)
+        if "tri" in f:
+            f["tri"][1:3] = -1                           # as prepare_inputs_tri
+        first = torch.nonzero(real[3]).flatten()[:8]
+        f["tgt4"][3, :16, :3] = boundary_rows(f["cloud"][3, first],
+                                              math.sqrt(pkw["max_dist_sq"]))
+        f["tgt4"][3, :16, 3] = 0.0
+        if "tri" in f:
+            t = f["bank_lab"].shape[1]
+            face = f["tri"][3, first].long()
+            f["tlab"][3, :16:2] = f["bank_lab"][f["mids"][3].long(),
+                                                face.clamp(0, t - 1)]
+        else:
+            f["tlab"][3, :16:2] = f["lab"][3, first]     # these pass
+        for i, orig_passes in ((4, True), (5, False)):
+            f["tgt4"][i, 1::2] = f["tgt4"][i, 0:-1:2]    # every target twice
+            if "tri" in f:
+                face = int(f["tri"][i][real[i]][0])
+                f["tri"][i] = torch.where(real[i], face, -1)
+                lab0 = f["bank_lab"][f["mids"][i].long(), face]
+            else:
+                lab0 = f["lab"][i][real[i]][0].clone()
+                f["lab"][i] = lab0
+            far = lab0 + torch.tensor([40.0 if lab0[0] < 50 else -40.0, 30.0,
+                                       -30.0], device=dev)
+            passes = 0 if orig_passes else 1
+            f["tlab"][i, passes::2] = lab0
+            f["tlab"][i, 1 - passes::2] = far
+        rows = torch.nonzero(real[6]).flatten()
+        if "tri" in f:
+            t = f["bank_lab"].shape[1]
+            for k, bad in enumerate((-1, t, t + 7)):
+                f["tri"][6, rows[k::3]] = bad
+        else:
+            f["lab"][6, rows[::3]] = 0.0
+
+        def cut(poses, points=slice(None), targets=slice(None), fn=None):
+            out = {}
+            for k, v in f.items():
+                if k == "bank_lab":
+                    out[k] = v
+                    continue
+                v = v[poses]
+                if k in per_point:
+                    v = fn(v) if fn else v[:, points]
+                elif k in ("tgt4", "tlab"):
+                    v = v[:, targets]
+                out[k] = v.contiguous()
+            return tuple(out[k] for k in names)
+
+        # P = 15000 (several staged chunks): each cloud repeated, each copy
+        # shifted by 3 mm along x.
+        p = f["cloud"].shape[1]
+        big = list(cut(slice(3, 5), fn=lambda v: v.repeat(
+            1, 12, *([1] * (v.dim() - 2)))[:, :15000]))
+        shift = (torch.arange(15000, device=dev) // p).float() * 0.003
+        big[0] = (big[0] + shift[:, None] * torch.tensor(
+            [1.0, 0.0, 0.0], device=dev)).contiguous()
+        cases = [("13 poses: no target, no point, explain-only, boundary, "
+                  "ties, face ids", cut(slice(None))),
+                 ("N=1 (ties)", cut(slice(4, 5))),
+                 ("P=77 S=45", cut(slice(None), slice(0, 77), slice(0, 45))),
+                 ("P=15000", tuple(big))]
+        for case, args in cases:
+            out = edge_phase(name, case, args, pkw)
+            if case.startswith("13"):
+                pn, un, ex = (o.tolist() for o in out)
+                require(ex[0] == 0 and un[0] == pn[0] > 0
+                        and pn[1] == un[1] == ex[1] == 0
+                        and pn[2] == un[2] == 0 and ex[2] > 0
+                        and un[4] < pn[4] and un[5] == pn[5],
+                        f"{name} edges: counts {[pn, un, ex]}")
+
+
 def write_ply(path: Path, verts: np.ndarray, faces: np.ndarray,
               colors: np.ndarray) -> None:
     """An ASCII PLY mesh with per-vertex colours (rounded to uchar)."""
@@ -1158,6 +1273,7 @@ def main() -> int:
     raster_edge_cases()
     icp_edge_cases()
     cost_edge_cases()
+    color_edge_cases()
 
     # 4. The slices on the card, and their first N_CPU poses on the CPU.
     check_slice(depth, "depth ROI")

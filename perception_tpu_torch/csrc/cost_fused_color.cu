@@ -17,30 +17,49 @@
 //                 (CIEDE2000(tgt_lab[w], cloud_lab[p]) <= thresh, or the point
 //                 is an explain-only sample, cadd == -1).
 //
-// What bounds it on the H100: the P x S distance sweep (1280 x 256 per pose at
-// the scoring shapes, ~9 flops a pair, ~6 GFLOP for 2048 poses); one
-// CIEDE2000 (~150 flops) per close point adds ~0.4 GFLOP. The design, one
-// templated kernel for both entry points:
-//   * one block per pose; targets (x, y, z, additive) as float4, their Lab,
-//     the S-byte "explained" flags and, for the face-id form, the pose's
-//     model Lab row (T x 3 floats: the block loads it itself, in place of the
-//     TPU's scalar prefetch) sit in shared memory;
-//   * each point keeps a running minimum with a strict '<' (the lowest index
-//     attaining it, as the TPU kernel's pass 2), then evaluates the gate
-//     against its winner's exact float32 Lab (the TPU recovers it from a bf16
-//     hi/lo one-hot product, exact to ~2^-16);
+// What bounds it on the H100: the dense problem is the P x S distance sweep
+// (1280 x 256 per pose at the scoring shapes, ~9 flops a pair, ~6 GFLOP for
+// 2048 poses) plus one CIEDE2000 (~160 flops, seven of them float64 sin /
+// cos / exp) per close real point, ~245 per pose; the inputs are ~25 MB. As
+// in cost_fused.cu, a point needs its winner only when it lies within res of
+// a target, so the design runs the compacted, group-box-culled sweep of
+// cost_cull.cuh (valid targets and points compacted in order, 16-point group
+// boxes culled per 32-target slice by ballots, survivors scanned 4 per step)
+// and gates each close real point on its winner in the sweep's epilogue:
+//   * one block per pose; the compacted targets, the staged points, the
+//     targets' Lab at their original index (S x 12 B), for the face-id form
+//     the pose's model Lab row (T x 12 B: the block loads it itself, in place
+//     of the TPU's scalar prefetch), and the explained targets as an S-bit
+//     set sit in shared memory; the points stage in chunks sized from the
+//     room these leave, so any P runs;
+//   * a staged point carries its original index p (w = p real, ~p
+//     explain-only). After the scan, a real point with dmin > res^2 is
+//     unexplained; a close explain-only point sets its winner's bit; a close
+//     real point reads its rendered Lab, cloud_lab[n, p] or
+//     s_blab[tri_id[n, p]] (zeros for an id outside [0, T)), and evaluates
+//     CIEDE2000 against its winner's exact float32 Lab (the TPU recovers it
+//     from a bf16 hi/lo one-hot product, exact to ~2^-16): a pass sets the
+//     winner's bit (atomicOr), a fail counts the point as unexplained;
 //   * CIEDE2000 follows ops/color.py ciede2000_components operation by
 //     operation (polynomial atan2, conditional mod 2pi, integer powers as
 //     square-and-multiply products); sin / cos / exp are taken in double and
 //     rounded once, sqrt and division are IEEE. Built with --fmad=false, the
 //     PyTorch twin in ops/cost_fused_color.py rounds at the same places.
+//
+// The counts equal the dense kernel's. The cull keeps, for a close point
+// (dmin <= res^2), every target at distance <= res^2 (cost_cull.cuh's
+// argument), so every target that ties its dense minimum survives, and the
+// ascending scan with a strict '<' keeps the lowest-index one: the dense
+// winner. The gate therefore sees the dense (winner Lab, rendered Lab) pair
+// and gives the dense verdict. A far point is unexplained whatever its
+// winner, and an explain-only point passes without a colour, so neither
+// needs the gate.
 
-#include <cuda_runtime.h>
+#include "cost_cull.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace cost_cull;
 
 constexpr float kPi = 3.141592653589793f;
 constexpr float kHalfPi = 1.5707963267948966f;
@@ -50,14 +69,6 @@ constexpr float kPow25_7 = 6103515625.0f;
 constexpr float kDeg30 = 0.5235987755982988f;
 constexpr float kDeg6 = 0.10471975511965977f;
 constexpr float kDeg63 = 1.0995574287564276f;
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
 
 __device__ __forceinline__ float sin_r(float x) { return (float)sin((double)x); }
 __device__ __forceinline__ float cos_r(float x) { return (float)cos((double)x); }
@@ -150,21 +161,19 @@ __global__ void __launch_bounds__(kThreads) cost_fused_color_kernel(
     const float* __restrict__ bank_lab,   // [M, T, 3] (face-id form)
     const float4* __restrict__ tgt,       // [N, S] (x, y, z, 0 or +inf)
     const float* __restrict__ tgt_lab,    // [N, S, 3]
-    int P, int S, int T, float max_dist_sq, float thresh,
+    int P, int S, int T, int chunk, float max_dist_sq, float thresh,
     float* __restrict__ out) {            // [N, 3]
-  extern __shared__ float4 s_tgt[];
-  float* s_tlab = reinterpret_cast<float*>(s_tgt + S);       // [S, 3]
+  extern __shared__ float4 s_tgt[];       // [S] compacted targets, w = index bits
+  float4* s_pts = s_tgt + S;              // [chunk] compacted points, w = p / ~p
+  float* s_tlab = reinterpret_cast<float*>(s_pts + chunk);   // [S, 3]
   float* s_blab = s_tlab + 3 * S;                            // [T, 3]
-  unsigned char* s_expl =
-      reinterpret_cast<unsigned char*>(s_blab + (kTri ? 3 * T : 0));
-  __shared__ int s_red[3][kWarps];
+  unsigned* s_expl =                                         // S bits
+      reinterpret_cast<unsigned*>(s_blab + (kTri ? 3 * T : 0));
+  __shared__ int s_cnt[2 * kWarps];
 
   const int n = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int s = tid; s < S; s += kThreads) {
-    s_tgt[s] = tgt[(size_t)n * S + s];
-    s_expl[s] = 0;
-  }
+  for (int w = tid; w < (S + 31) / 32; w += kThreads) s_expl[w] = 0u;
   for (int i = tid; i < 3 * S; i += kThreads) {
     s_tlab[i] = tgt_lab[(size_t)n * S * 3 + i];
   }
@@ -172,98 +181,66 @@ __global__ void __launch_bounds__(kThreads) cost_fused_color_kernel(
     const float* row = bank_lab + (size_t)model_ids[n] * T * 3;
     for (int i = tid; i < 3 * T; i += kThreads) s_blab[i] = row[i];
   }
-  __syncthreads();
-
-  int point_num = 0, unexplained = 0;
-  const float* cp = cloud + (size_t)n * P * 3;
-  const float* ca = cadd + (size_t)n * P;
-  for (int p = tid; p < P; p += kThreads) {
-    const float cx = cp[3 * p], cy = cp[3 * p + 1], cz = cp[3 * p + 2];
-    float dmin = __int_as_float(0x7f800000);
-    int win = 0;
-    for (int s = 0; s < S; ++s) {
-      const float4 t = s_tgt[s];
-      const float dx = t.x - cx, dy = t.y - cy, dz = t.z - cz;
-      const float d = dx * dx + dy * dy + dz * dz + t.w;
-      if (d < dmin) {
-        dmin = d;
-        win = s;
-      }
-    }
-    const float flag = ca[p];
-    if (flag == 0.0f) {
-      ++point_num;
-      if (dmin > max_dist_sq) ++unexplained;
-    }
-    if (flag <= 0.0f && dmin <= max_dist_sq) {
-      bool ok = flag == -1.0f;
-      if (!ok) {
-        float l2 = 0.0f, a2 = 0.0f, b2 = 0.0f;
-        if (kTri) {
-          const int f = tri_id[(size_t)n * P + p];
-          if (f >= 0 && f < T) {
-            l2 = s_blab[3 * f];
-            a2 = s_blab[3 * f + 1];
-            b2 = s_blab[3 * f + 2];
-          }
-        } else {
-          const float* lab = cloud_lab + ((size_t)n * P + p) * 3;
-          l2 = lab[0];
-          a2 = lab[1];
-          b2 = lab[2];
+  // The sweep's barriers order these stores before the epilogue's reads.
+  int round = 0;
+  const int nt = stage_targets(tgt + (size_t)n * S, S, s_tgt, s_cnt, round);
+  int unexplained = 0;
+  const int point_num = sweep(
+      cloud + (size_t)n * P * 3, cadd + (size_t)n * P, P, chunk, max_dist_sq,
+      s_tgt, nt, s_pts, s_cnt, round, [&](int w, float dmin, int win) {
+        if (dmin > max_dist_sq) {
+          if (w >= 0) ++unexplained;
+          return;
         }
-        const float de = ciede2000(s_tlab[3 * win], s_tlab[3 * win + 1],
-                                   s_tlab[3 * win + 2], l2, a2, b2);
-        ok = de <= thresh;
-      }
-      if (ok) {
-        s_expl[win] = 1;
-      } else {
-        ++unexplained;
-      }
-    }
-  }
-  __syncthreads();
-
-  int explained = 0;
-  for (int s = tid; s < S; s += kThreads) explained += s_expl[s];
-
-  const int lane = tid & 31, warp = tid >> 5;
-  point_num = warp_sum(point_num);
-  unexplained = warp_sum(unexplained);
-  explained = warp_sum(explained);
-  if (lane == 0) {
-    s_red[0][warp] = point_num;
-    s_red[1][warp] = unexplained;
-    s_red[2][warp] = explained;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    int v = 0;
-    for (int w = 0; w < kWarps; ++w) v += s_red[tid][w];
-    out[(size_t)n * 3 + tid] = (float)v;
-  }
+        bool ok = w < 0;   // an explain-only point passes without a colour
+        if (!ok) {
+          float l2 = 0.0f, a2 = 0.0f, b2 = 0.0f;
+          if (kTri) {
+            const int f = tri_id[(size_t)n * P + w];
+            if (f >= 0 && f < T) {
+              l2 = s_blab[3 * f];
+              a2 = s_blab[3 * f + 1];
+              b2 = s_blab[3 * f + 2];
+            }
+          } else {
+            const float* lab = cloud_lab + ((size_t)n * P + w) * 3;
+            l2 = lab[0];
+            a2 = lab[1];
+            b2 = lab[2];
+          }
+          const float de = ciede2000(s_tlab[3 * win], s_tlab[3 * win + 1],
+                                     s_tlab[3 * win + 2], l2, a2, b2);
+          ok = de <= thresh;
+        }
+        if (ok) {
+          atomicOr(&s_expl[win >> 5], 1u << (win & 31));
+        } else {
+          ++unexplained;
+        }
+      });
+  write_counts(point_num, unexplained, s_expl, S, out + (size_t)n * 3);
 }
 
+// Dynamic shared memory: S compacted targets (16 B each), `chunk` staged
+// points (16 B each), the targets' Lab (12 B each), the model Lab row in the
+// face-id form (12 B per face) and S explained bits. The points stage in
+// chunks of up to kChunk, fewer when the rest leaves less room (at least one
+// round of kThreads); any P fits.
 template <bool kTri>
-int launch(const float* cloud, const float* cadd, const float* cloud_lab,
-           const int* tri_id, const int* model_ids, const float* bank_lab,
-           const float* tgt4, const float* tgt_lab, int N, int P, int S, int T,
-           float max_dist_sq, float thresh, float* out, void* stream) {
+int launch_color(const float* cloud, const float* cadd, const float* cloud_lab,
+                 const int* tri_id, const int* model_ids, const float* bank_lab,
+                 const float* tgt4, const float* tgt_lab, int N, int P, int S,
+                 int T, float max_dist_sq, float thresh, float* out,
+                 void* stream) {
   if (N == 0) return 0;
-  const size_t smem = (size_t)S * (sizeof(float4) + 3 * sizeof(float)) +
-                      (kTri ? (size_t)T * 3 * sizeof(float) : 0) + (size_t)S;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cost_fused_color_kernel<kTri>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cost_fused_color_kernel<kTri><<<N, kThreads, smem, (cudaStream_t)stream>>>(
-      cloud, cadd, cloud_lab, tri_id, model_ids, bank_lab,
-      reinterpret_cast<const float4*>(tgt4), tgt_lab, P, S, T, max_dist_sq,
-      thresh, out);
-  return (int)cudaGetLastError();
+  const size_t fixed = (size_t)S * (16 + 12) + (kTri ? (size_t)T * 12 : 0) +
+                       (size_t)(S + 31) / 32 * 4;
+  const int chunk = chunk_points(fixed, P);
+  if (chunk < kThreads) return (int)cudaErrorInvalidValue;
+  return launch(cost_fused_color_kernel<kTri>, N, fixed + (size_t)chunk * 16,
+                stream, cloud, cadd, cloud_lab, tri_id, model_ids, bank_lab,
+                reinterpret_cast<const float4*>(tgt4), tgt_lab, P, S, T, chunk,
+                max_dist_sq, thresh, out);
 }
 
 }  // namespace
@@ -273,8 +250,9 @@ extern "C" int pt_cost_fused_color(const float* cloud, const float* cadd,
                                    const float* tgt_lab, int N, int P, int S,
                                    float max_dist_sq, float thresh, float* out,
                                    void* stream) {
-  return launch<false>(cloud, cadd, cloud_lab, nullptr, nullptr, nullptr, tgt4,
-                       tgt_lab, N, P, S, 0, max_dist_sq, thresh, out, stream);
+  return launch_color<false>(cloud, cadd, cloud_lab, nullptr, nullptr,
+                             nullptr, tgt4, tgt_lab, N, P, S, 0, max_dist_sq,
+                             thresh, out, stream);
 }
 
 extern "C" int pt_cost_fused_color_tri(const float* cloud, const float* cadd,
@@ -284,6 +262,7 @@ extern "C" int pt_cost_fused_color_tri(const float* cloud, const float* cadd,
                                        int S, int T, float max_dist_sq,
                                        float thresh, float* out,
                                        void* stream) {
-  return launch<true>(cloud, cadd, nullptr, tri_id, model_ids, bank_lab, tgt4,
-                      tgt_lab, N, P, S, T, max_dist_sq, thresh, out, stream);
+  return launch_color<true>(cloud, cadd, nullptr, tri_id, model_ids, bank_lab,
+                            tgt4, tgt_lab, N, P, S, T, max_dist_sq, thresh,
+                            out, stream);
 }

@@ -4,9 +4,9 @@ The kernels of the scoring path live in `perception_tpu_torch/csrc/` as
 CUDA C++ with a plain C interface. On first use they are compiled by
 `nvcc` for `sm_90a` (one `nvcc` per source, all in parallel) and linked
 into one shared library under `build/perception_tpu_torch/` (next to the
-package), named by a hash of the sources and flags, and loaded with ctypes.
-Nothing here runs at import time: the CPU tests import every module of the
-package on machines without `nvcc`.
+package), named by a hash of the sources, their headers and the flags, and
+loaded with ctypes. Nothing here runs at import time: the CPU tests import
+every module of the package on machines without `nvcc`.
 
 Every wrapper counts what it ran: `LAUNCHES[name]` when it launched its kernel
 on a CUDA tensor, `TWIN_CALLS[name]` when a CPU tensor sent it to the plain
@@ -88,8 +88,11 @@ def find_nvcc() -> str:
 
 
 def _source_hash() -> str:
+    """The library's name: a hash of the flags, the sources and the headers
+    they include (csrc/*.cuh)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -27,10 +27,11 @@ _MAX_SHARED = 227 * 1024
 
 
 def _shared_bytes(s: int, t: int = 0) -> int:
-    """The kernel's dynamic shared memory: targets (16 B) + their Lab
-    (12 B) + explained flags (1 B) per target, the model Lab row (12 B per
-    face) in the face-id form."""
-    return s * 29 + t * 12
+    """The least dynamic shared memory the kernel takes: per target its
+    compacted copy (16 B), its Lab (12 B) and an explained bit; the model Lab
+    row (12 B per face) in the face-id form; and the points, staged in chunks
+    of at least one round of 256 (16 B each), so any P fits."""
+    return s * 28 + -(-s // 32) * 4 + t * 12 + 256 * 16
 
 
 def nn_cost_fused_color(
