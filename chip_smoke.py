@@ -9,20 +9,22 @@ It builds the hand-written kernels from `perception_tpu_torch/csrc/`, holds
 each against its plain PyTorch twin on the card at the shapes of the scoring
 benchmark (bumpy1024 models, 2048 poses; the depth-only and the colour-gated
 cost, ROI 32 and full frame; the three rasters of `kernel_backend` "auto",
-"pallas" and "pallas_bin" at the depth ROI and colour full-frame batches,
-with an A/B of their times; the real-sensor profile on a Kinect-degraded
-observation with the fused ICP in its exact, d2d, symmetric and adaptive
+"pallas" (with its table's setup kernel) and "pallas_bin" at the depth ROI
+and colour full-frame batches, with an A/B of their times; the real-sensor
+profile on a Kinect-degraded observation with the fused ICP in its exact, d2d, symmetric and adaptive
 modes; the composed "nn" and "gicp" refiners with the 1-NN kernel), scores
 the batches on the card and again on the CPU twins, serves /localize
 requests through the port's HTTP service on five paths (depth ROI, colour
 ROI, colour full frame, real-sensor profile, gicp), and runs the `localize`
 CLI on the bench scene written as files (PLY models, PNG images, poses.txt,
 a JSON config) with kernel_backend "pallas_bin" and "pallas", checking the
-detections against the ground truth. The 1-NN kernel, the direct raster,
-the fused ICP (every mode) and the three cost kernels are also held against
-their twins at edge shapes (several reference tiles, ties, a pose with no
-valid reference; one pose, a 24x24 ROI, T = 200, T = 1024 at 640x480
-stride 1, a pose behind the camera; poses without a valid target or
+detections against the ground truth. The 1-NN kernel, the three rasters
+and the keys path's setup, the fused ICP (every mode) and the three cost
+kernels are also held against their twins at edge shapes (several
+reference tiles, ties, a pose with no valid reference; one pose, a 24x24
+ROI, T = 200, T = 1024 at 640x480 stride 1, a pose behind the camera,
+T = 2048 over the 80x60 frame, T = 336 at 640x480, poses close enough to
+fill the bin raster's wide list; poses without a valid target or
 source, targets at max_correspondence / sensor_resolution +-1 ulp, N = 1,
 N = 13, P = 77 with S = 45, a cost with P = 15000; for the colour costs
 also only explain-only points, tied targets whose copies fail the gate
@@ -43,7 +45,8 @@ larger of its float32 operations over 67 TFLOP/s and its bytes (each input
 read once, each output written once) over 3.35 TB/s. Operations per element
 are counted from the kernels' sources (the *_OPS constants below); the
 rasters count the pixels inside each drawn triangle's screen bounding box
-(the coefficient-table raster without the setup, which it does not run),
+(the coefficient-table raster without the setup, which it does not run;
+the setup kernel its 130 operations per pose and triangle),
 ICP the iterations and association sweeps each pose of this run ran, the
 colour gate the points of this run that reach it. For the ICP and the three
 cost kernels, `bound_valid_ms` counts the same work over valid (point,
@@ -130,6 +133,12 @@ KERNELS = {
         raster_keys.rasterize_keys_twin,
         "perception_tpu_torch/csrc/raster_keys.cu",
         "perception_tpu/ops/pallas_raster.py:115"),
+    # The keys path's table setup: no TPU kernel (XLA element-wise code in
+    # the JAX package's render_pose_batch).
+    "keys_setup": Kernel(
+        raster_keys.prepare_setup, raster_keys.launch_setup,
+        raster_keys.setup_twin, "perception_tpu_torch/csrc/raster_keys.cu",
+        "perception_tpu/ops/rasterizer.py:375"),
     "raster_bin": Kernel(
         raster_bin.prepare_inputs, raster_bin.launch_kernel,
         raster_bin.rasterize_bin_twin,
@@ -164,6 +173,7 @@ KERNELS = {
 SITES = {
     "raster_direct": (raster_direct, "rasterize_direct"),
     "raster_keys": (raster_keys, "rasterize_keys"),
+    "keys_setup": (raster_keys, "setup_table"),
     "raster_bin": (raster_bin, "rasterize_bin"),
     "icp_fused": (scorer, "icp_fused"),
     "cost_fused": (cost, "nn_cost_fused"),
@@ -173,9 +183,10 @@ SITES = {
 }
 ICP_MODES = ("exact", "d2d", "sym", "adaptive")   # beside p2p (depth batch)
 DEPTH = ("raster_direct", "icp_fused", "cost_fused")
-# kernel_backend -> its raster kernel.
-RASTERS = {"auto": "raster_direct", "pallas": "raster_keys",
-           "pallas_bin": "raster_bin"}
+# kernel_backend -> the kernels its raster runs, the raster last.
+RASTER_KERNELS = {"auto": ("raster_direct",),
+                  "pallas": ("keys_setup", "raster_keys"),
+                  "pallas_bin": ("raster_bin",)}
 REPO = Path(__file__).resolve().parent
 # (kernel, case) -> the prepared inputs kernel_phase held it on, and the
 # wrapper call they were prepared from.
@@ -269,6 +280,14 @@ def box_pairs(xmin, xmax, ymin, ymax, drawable, anchors, pkw) -> int:
     """(pixel, triangle) pairs a bounding-box rasteriser must test: per pose
     and drawable triangle ([N, T] screen boxes), the strided pixels of the
     ROI inside the box."""
+    return int(box_pixels(xmin, xmax, ymin, ymax, drawable, anchors,
+                          pkw).sum().item())
+
+
+def box_pixels(xmin, xmax, ymin, ymax, drawable, anchors,
+               pkw) -> torch.Tensor:
+    """[N, T]: the strided ROI pixels inside each drawable triangle's
+    box."""
     height, stride = pkw["height"], pkw["stride"]
     ax, ay = anchors[:, 0:1].float(), anchors[:, 1:2].float()
     # Pixel column i sits at x = (ax + i) * stride, row j at
@@ -280,15 +299,17 @@ def box_pairs(xmin, xmax, ymin, ymax, drawable, anchors, pkw) -> int:
           - ay).clamp(max=pkw["roi_h"] - 1)
     cols = (i1 - i0 + 1).clamp(min=0)
     rows = (j1 - j0 + 1).clamp(min=0)
-    return int((cols * rows * drawable).sum().item())
+    return cols * rows * drawable
 
 
-def raster_pairs(pargs: tuple, pkw: dict) -> int:
-    """box_pairs of the rasters that read the bank (direct, bin)."""
+def screen_boxes(pargs: tuple, pkw: dict, finite_guard: bool = False):
+    """Each pose's triangles' screen boxes [N, T] (xmin, xmax, ymin, ymax)
+    and whether the setup draws them, from the rasters' arguments that
+    read the bank (direct, bin)."""
     verts16, pose12, model_ids, anchors, proj12 = pargs
     width, height = pkw["width"], pkw["height"]
     coefs = raster_direct._triangle_setup(verts16, pose12, model_ids, proj12,
-                                          width, height)
+                                          width, height, finite_guard)
     drawable = torch.isfinite(coefs[:, 8])          # [N, T]
     v = verts16[model_ids.long()]                   # [N, 16, T]
     p = [pose12[:, i:i + 1] for i in range(12)]
@@ -305,17 +326,76 @@ def raster_pairs(pargs: tuple, pkw: dict) -> int:
         sy.append((y * pr[5] + z * pr[6] + pr[7]) / zdiv
                   * (height / 2) + height / 2)
     sx, sy = torch.stack(sx), torch.stack(sy)       # [3, N, T]
-    return box_pairs(sx.amin(0), sx.amax(0), sy.amin(0), sy.amax(0),
-                     drawable, anchors, pkw)
+    return sx.amin(0), sx.amax(0), sy.amin(0), sy.amax(0), drawable
 
 
-def keys_pairs(call: tuple, pargs: tuple, pkw: dict) -> int:
-    """box_pairs of the coefficient-table raster, from the per-triangle
-    boxes its call is given (+-inf for culled triangles)."""
-    boxes = call[0][1]
-    return box_pairs(boxes[..., 0], boxes[..., 1], boxes[..., 2],
-                     boxes[..., 3], torch.isfinite(boxes[..., 0]), pargs[2],
-                     pkw)
+def raster_pairs(pargs: tuple, pkw: dict) -> int:
+    """box_pairs of the rasters that read the bank (direct, bin)."""
+    return box_pairs(*screen_boxes(pargs, pkw), pargs[3], pkw)
+
+
+def bin_ranges(pargs: tuple, pkw: dict) -> torch.Tensor:
+    """The bin kernel's per-triangle patch ranges [N, 4, T] over the whole
+    ROI (raster_bin.patch_ranges of its drawn triangles' widened boxes)."""
+    xmin, xmax, ymin, ymax, drawn = screen_boxes(pargs, pkw, True)
+    boxes = torch.stack([xmin - 1.0, xmax + 1.0, ymin - 1.0, ymax + 1.0], 1)
+    return raster_bin.patch_ranges(
+        boxes, drawn, pargs[3], **{k: pkw[k] for k in ("height", "stride",
+                                                        "roi_h", "roi_w")})
+
+
+def wide_triangles(pargs: tuple, pkw: dict) -> int:
+    """(pose, triangle) pairs the bin kernel puts in its wide list: drawn
+    triangles whose range spans more than MAX_BINS 8x4-pixel patches of the
+    ROI (the shapes it is asked for fit one window)."""
+    rng = bin_ranges(pargs, pkw)
+    bins = (rng[:, 1] - rng[:, 0] + 1) * (rng[:, 3] - rng[:, 2] + 1)
+    return int(((rng[:, 0] <= rng[:, 1]) & (bins > raster_bin.MAX_BINS))
+               .sum())
+
+
+def window_crossings(pargs: tuple, pkw: dict) -> tuple[int, int]:
+    """(windows of patches the bin kernel bins the ROI in, (pose, triangle)
+    pairs whose patch range spans more than one of them)."""
+    t, roi_h, roi_w = pargs[0].shape[2], pkw["roi_h"], pkw["roi_w"]
+    win_w, win_h = raster_bin.window(t, roi_h, roi_w)
+    ntx = -(-roi_w // raster_bin.PATCH_W)
+    nty = -(-roi_h // raster_bin.PATCH_H)
+    rng = bin_ranges(pargs, pkw)
+    cross = ((rng[:, 0] <= rng[:, 1]) & (rng[:, 2] <= rng[:, 3])
+             & ((rng[:, 0] // win_w != rng[:, 1] // win_w)
+                | (rng[:, 2] // win_h != rng[:, 3] // win_h)))
+    return -(-ntx // win_w) * -(-nty // win_h), int(cross.sum())
+
+
+def split_anchors(pargs: tuple, pkw: dict) -> torch.Tensor:
+    """Per pose, the ROI anchor (0, y0) that puts the bin raster's first
+    split between windows of patch rows through the middle of the pose's
+    tallest drawn triangle (the rasters' arguments with any anchors)."""
+    t, roi_h, roi_w = pargs[0].shape[2], pkw["roi_h"], pkw["roi_w"]
+    _, win_h = raster_bin.window(t, roi_h, roi_w)
+    _, _, ymin, ymax, drawn = screen_boxes(pargs, pkw, True)
+    tall = torch.where(drawn, ymax - ymin, -1.0).argmax(dim=1, keepdim=True)
+    mid = ((ymin + ymax) / 2).gather(1, tall)[:, 0]
+    row = (pkw["height"] - 1 - mid) / pkw["stride"]
+    last = pkw["height"] // pkw["stride"] - roi_h
+    y0 = torch.nan_to_num(row - win_h * raster_bin.PATCH_H).round()
+    y0 = torch.where(drawn.any(dim=1), y0.clamp(0, last), 0.0)
+    return torch.stack([torch.zeros_like(y0), y0], 1).to(torch.int32)
+
+
+def keys_pairs(pargs: tuple, pkw: dict) -> tuple[int, int]:
+    """(box_pairs of the coefficient-table raster from the per-triangle
+    boxes it is given, +-inf for culled triangles; the (pose, triangle)
+    table rows it must read: those whose box, widened by 1 px, holds a pixel
+    of the pose's ROI)."""
+    boxes, anchors = pargs[1], pargs[2]
+    xmin, xmax, ymin, ymax = boxes.unbind(-1)
+    drawn = torch.isfinite(xmin)
+    pairs = box_pairs(xmin, xmax, ymin, ymax, drawn, anchors, pkw)
+    rows = box_pixels(xmin - 1.0, xmax + 1.0, ymin - 1.0, ymax + 1.0, drawn,
+                      anchors, pkw) > 0
+    return pairs, int(rows.sum().item())
 
 
 def work(name: str, pargs: tuple, pkw: dict, out, twin_extra) -> tuple:
@@ -327,7 +407,16 @@ def work(name: str, pargs: tuple, pkw: dict, out, twin_extra) -> tuple:
         return (raster_pairs(pargs, pkw) * RASTER_PAIR_OPS
                 + n * t * RASTER_TRI_OPS), moved
     if name == "raster_keys":
-        return twin_extra * RASTER_PAIR_OPS, moved    # pairs in the boxes
+        # Pairs in the boxes; every box and key, and only the table rows of
+        # triangles whose widened box meets the ROI.
+        pairs, rows = twin_extra
+        table, boxes, anchors = pargs
+        moved = (nbytes((boxes, anchors)) + nbytes(outs)
+                 + rows * table.shape[2] * table.element_size())
+        return pairs * RASTER_PAIR_OPS, moved
+    if name == "keys_setup":
+        n, t = pargs[1].shape[0], pargs[0].shape[2]
+        return n * t * RASTER_TRI_OPS, moved
     if name == "icp_fused":
         _, p, _ = pargs[0].shape
         s = pargs[3].shape[1]
@@ -386,6 +475,8 @@ def gated_points(pargs: tuple, pkw: dict) -> int:
 
 def compare(name: str, kernel_out, twin_out) -> dict:
     """Hold a kernel's output against its twin's with the kernel's bar."""
+    if name == "keys_setup":
+        return compare_setup(kernel_out, twin_out)
     if name in ("raster_direct", "raster_keys", "raster_bin"):
         same = kernel_out == twin_out
         frac = same.float().mean().item()
@@ -412,6 +503,34 @@ def compare(name: str, kernel_out, twin_out) -> dict:
     frac = same.float().mean().item()
     require(frac == 1.0, f"{name} counts equal on {frac:.6f}")
     return {"equal_frac": frac, "max_abs_err": err, "err_unit": "count"}
+
+
+def compare_setup(kernel_out, twin_out) -> dict:
+    """The setup kernel against keys_setup + pack_coefficients: every box
+    bit for bit (int32 views); every table entry of a drawable triangle
+    (box not (+inf, -inf, ..)) bit for bit; alpha_c = -inf on every culled
+    row, and so on each row where the twin has alpha_c = -inf (where the
+    twin's is NaN, both fail every coverage test and no raster reads the
+    rest of the row)."""
+    (k_tab, k_box), (t_tab, t_box) = kernel_out, twin_out
+    inf = float("inf")
+    culled = (t_box[..., 0] == inf) & (t_box[..., 1] == -inf)
+    drawn = ~culled
+    boxes_equal = torch.equal(k_box.view(torch.int32), t_box.view(torch.int32))
+    rows_equal = (k_tab.view(torch.int32)
+                  == t_tab.view(torch.int32)).all(dim=-1)
+    frac = rows_equal[drawn].float().mean().item() if drawn.any() else 1.0
+    alpha_ok = bool(torch.isneginf(k_tab[..., 8][culled]).all())
+    twin_nan = int(torch.isnan(t_tab[..., 8][culled]).sum())
+    err = ((k_tab[drawn] - t_tab[drawn]).abs().nan_to_num(0.0).max().item()
+           if drawn.any() else 0.0)
+    require(boxes_equal, "keys_setup boxes equal to the twin's")
+    require(frac == 1.0, f"keys_setup drawable rows equal on {frac:.6f}")
+    require(alpha_ok, "keys_setup alpha_c = -inf on every culled row")
+    return {"equal_frac": frac, "max_abs_err": err,
+            "err_unit": "table entry", "drawn_rows": int(drawn.sum()),
+            "culled_rows": int(culled.sum()),
+            "culled_rows_twin_alpha_nan": twin_nan}
 
 
 def library_ms(name: str, pargs: tuple):
@@ -452,7 +571,7 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
         if name.startswith("cost_fused_color"):
             extra = gated_points(pargs, pkw)
         elif name == "raster_keys":
-            extra = keys_pairs(call, pargs, pkw)
+            extra = keys_pairs(pargs, pkw)
     sync()
     result = compare(name, out_k, out_t)
     result["ms"] = time_ms(lambda: k.launch(*pargs, **pkw))
@@ -464,6 +583,8 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
     result.update(ops=ops, bytes=moved, bound_ms=max(t_ops, t_bytes),
                   bound_by="operations" if t_ops >= t_bytes else "bytes",
                   library_ms=library_ms(name, pargs), **iterations)
+    if name == "raster_keys":
+        result["table_rows_read"] = extra[1]
     valid = valid_work(name, pargs, pkw, extra)
     if valid is not None:
         result.update(bound_valid_ms=max(valid[0] / FP32_FLOPS * 1e3, t_bytes),
@@ -681,17 +802,19 @@ def raster_ab(case: str, problems: dict) -> None:
     """The three rasters of `kernel_backend` at one batch: bin and direct on
     the inputs the bin batch hands its wrapper (they read the same), keys on
     its own batch's (the same poses and anchors). The bin keys must equal
-    the direct keys; the share of keys-kernel keys equal to them is
-    reported. Then, in turns, each kernel (median of 20 after 3 warm-ups),
-    the keys path's PyTorch setup (keys_setup, pack_coefficients and the
-    chunk boxes: work the other two rasters do in-kernel) and each backend's
-    whole batch (median of 10 after 1)."""
+    the direct keys, and so must the keys-kernel keys. Then, in turns, each
+    kernel (median of 20 after 3 warm-ups), the keys path's setup as the
+    card runs it (one kernel launch) and as the CPU runs it (keys_setup and
+    pack_coefficients in PyTorch, here on the card; the setup kernel is held
+    to it), and each backend's whole batch (median of 10 after 1)."""
     calls = {}
     for backend, bp in problems.items():
         with recorded_kernel_calls() as seen:
             bp.score()
         sync()
-        calls[backend] = seen[RASTERS[backend]]
+        calls[backend] = seen[RASTER_KERNELS[backend][-1]]
+        if backend == "pallas":
+            setup_call = seen["keys_setup"]
     bargs, bkw = calls["pallas_bin"]
     prepared = {
         "raster_direct": raster_direct.prepare_inputs(*bargs, **bkw),
@@ -712,23 +835,29 @@ def raster_ab(case: str, problems: dict) -> None:
     verts, _, valid, poses, ids, _, _, proj, _ = keys_bp.args
     cfg = keys_bp.cfg
     backface = keys_bp.env._render_bank[3]
-    anchors = calls["pallas"][0][2]
+    sargs, skw = raster_keys.prepare_setup(*setup_call[0], **setup_call[1])
 
-    def keys_setup():
+    def setup_kernel():
+        return raster_keys.launch_setup(*sargs, **skw)
+
+    def setup_pytorch():
         coefs, abs_base, ok, boxes = rasterizer.keys_setup(
             verts, valid, poses, ids.long(), proj, cfg.width, cfg.height,
             backface)
-        return raster_keys.prepare_inputs(
-            raster_keys.pack_coefficients(coefs, abs_base, ok), boxes, anchors,
-            width=cfg.width, height=cfg.height, stride=cfg.stride,
-            roi_shape=cfg.roi_shape)
-    require(torch.equal(keys_setup()[0][0], prepared["raster_keys"][0][0]),
+        return raster_keys.pack_coefficients(coefs, abs_base, ok), boxes
+    table = setup_kernel()[0]
+    require(torch.equal(table, prepared["raster_keys"][0][0]),
             f"{case}: the timed setup gives the batch's coefficient table")
+    setup_check = compare_setup((table, prepared["raster_keys"][0][1]),
+                                setup_pytorch())
     order = ["raster_direct", "raster_keys", "raster_bin"]
     kernel_ms: dict[str, list] = {n: [] for n in order}
     for name in order + order[::-1]:
         kernel_ms[name].append(time_ms(launch[name]))
-    setup_ms = time_ms(keys_setup)
+    setup_ms: dict[str, list] = {"kernel": [], "pytorch": []}
+    for name, fn in (("pytorch", setup_pytorch), ("kernel", setup_kernel),
+                     ("kernel", setup_kernel), ("pytorch", setup_pytorch)):
+        setup_ms[name].append(time_ms(fn))
     batch_ms: dict[str, list] = {b: [] for b in problems}
     for backend in ["auto", "pallas", "pallas_bin", "pallas_bin", "pallas",
                     "auto"]:
@@ -740,7 +869,10 @@ def raster_ab(case: str, problems: dict) -> None:
           "poses": int(direct.shape[0]), "pixels": int(direct.shape[1]),
           "kernel_ms": mean_ms, "kernel_ms_turns": kernel_ms,
           "direct_over_bin": mean_ms["raster_direct"] / mean_ms["raster_bin"],
-          "keys_setup_ms": setup_ms,
+          "keys_setup_ms": statistics.mean(setup_ms["pytorch"]),
+          "keys_setup_kernel_ms": statistics.mean(setup_ms["kernel"]),
+          "keys_setup_ms_turns": setup_ms,
+          "keys_setup_kernel_vs_pytorch": setup_check,
           "batch_ms": {b: statistics.median(v) for b, v in batch_ms.items()},
           "bin_equal_direct_frac": bin_equal,
           "keys_equal_direct_frac": keys_equal})
@@ -802,34 +934,86 @@ def nn1_edge_cases(dev) -> None:
 
 
 def raster_edge_cases() -> None:
-    """The direct raster at shapes off the main path, from the scoring
-    batch's inputs: one pose; a 24x24 ROI (2x2 tiles, the last ones 8 wide);
-    T = 200 (a multiple of neither the tile, the setup pass nor the
-    cluster); T = 1024 over the 640x480 frame at stride 1 for 8 candidate
-    poses; a batch whose second pose lies behind the camera (every triangle
-    culled)."""
+    """The three rasters, and the keys path's setup, at shapes off the main
+    path, from the scoring batch's inputs: one pose; a 24x24 ROI (2x2
+    tiles, the last ones 8 wide); T = 200 (a multiple of neither the tile,
+    the setup pass nor the cluster); T = 1024 over the 640x480 frame at
+    stride 1 for 8 candidate poses; a batch whose second pose lies behind
+    the camera (every triangle culled); T = 2048 (the observation bank
+    twice: ties between copies, eight cull passes) over the 80x60 full
+    frame; T = 336 over 640x480 at stride 1, the most triangles the parent
+    commit's bin kernel took there (T x 49 B + (4 + T / 4) B per 8x16 tile
+    <= 227 KB); T = 1024 over that frame with the 8 poses 0.16 m from
+    the camera, whose large triangles fill the bin raster's wide list; and
+    T = 16 over a 2048x1792 ROI at stride 1 (the parent commit's bin kernel
+    took it at 230,160 B) for 2 of those poses and 2 of the batch's, which
+    the bin raster covers in two windows of patches, each ROI anchored in a
+    2048x3584 frame so that its tallest triangle crosses from one window
+    into the next."""
     pargs, pkw = INPUTS["raster_direct", ROI_CASE]
     verts16, pose12, ids, anchors, proj12 = pargs
     frame_verts, _, _, frame_anchors, _ = INPUTS["raster_direct",
                                                  FRAME_CASE][0]
+    frame_kw = INPUTS["raster_direct", FRAME_CASE][1]
+    full_kw = INPUTS["raster_direct", FULL_CASE][1]
+    frame8 = frame_anchors[:1].expand(8, 2).contiguous()
     behind = pose12[:4].clone()
     behind[1, 11] = -behind[1, 11]              # z translation negated
+    near = pose12[:8].clone()
+    near[:, 3], near[:, 7], near[:, 11] = 0.0, 0.0, 0.16
+    double = torch.cat([frame_verts, frame_verts], dim=2).contiguous()
+    windows_kw = {**frame_kw, "width": 2048, "height": 3584, "roi_h": 1792,
+                  "roi_w": 2048}
+    windows_args = (frame_verts[:, :, :16].contiguous(),
+                    torch.cat([pose12[:2], near[:2]]), ids[:4], None, proj12)
+    windows_args = (*windows_args[:3],
+                    split_anchors(windows_args, windows_kw), proj12)
     cases = [
         ("N=1", (verts16, pose12[:1], ids[:1], anchors[:1], proj12), pkw),
         ("ROI 24x24", pargs, {**pkw, "roi_h": 24, "roi_w": 24}),
         ("T=200", (verts16[:, :, :200].contiguous(), *pargs[1:]), pkw),
         ("T=1024, 640x480 stride 1, 8 poses",
-         (frame_verts, pose12[:8], ids[:8],
-          frame_anchors[:1].expand(8, 2).contiguous(), proj12),
-         INPUTS["raster_direct", FRAME_CASE][1]),
+         (frame_verts, pose12[:8], ids[:8], frame8, proj12), frame_kw),
         ("pose 1 behind the camera", (verts16, behind, ids[:4], anchors[:4],
-                                      proj12), pkw)]
+                                      proj12), pkw),
+        ("T=2048 (the observation bank twice), 80x60 full frame, 8 poses",
+         (double, pose12[:8], ids[:8], torch.zeros_like(frame8), proj12),
+         full_kw),
+        ("T=336, 640x480 stride 1, 8 poses",
+         (frame_verts[:, :, :336].contiguous(), pose12[:8], ids[:8], frame8,
+          proj12), frame_kw),
+        ("T=1024, 640x480 stride 1, 8 poses at 0.16 m (wide list)",
+         (frame_verts, near, ids[:8], frame8, proj12), frame_kw),
+        ("T=16, 2048x1792 ROI of a 2048x3584 frame, stride 1, 4 poses "
+         "(bin windows)", windows_args, windows_kw)]
+    require(frame_verts.shape[0] == verts16.shape[0],
+            "the observation bank has the scoring bank's models")
     for label, args, kw in cases:
-        keys = edge_phase("raster_direct", label, args, kw)
-        if "behind" in label:
-            require(bool((keys[1] == INVALID_KEY).all()
-                         and (keys[0] != INVALID_KEY).any()),
-                    "raster_direct: a pose behind the camera drew pixels")
+        for name in ("raster_direct", "raster_keys", "raster_bin"):
+            if name == "raster_keys":
+                setup = edge_phase("keys_setup", label,
+                                   (args[0], args[1], args[2], args[4]),
+                                   {k: kw[k] for k in ("width", "height")})
+                keys = edge_phase(name, label, (*setup, args[3]),
+                                  {k: kw[k] for k in ("height", "stride",
+                                                      "roi_h", "roi_w")})
+            else:
+                keys = edge_phase(name, label, args, kw)
+            if "behind" in label:
+                require(bool((keys[1] == INVALID_KEY).all()
+                             and (keys[0] != INVALID_KEY).any()),
+                        f"{name}: a pose behind the camera drew pixels")
+        if "wide list" in label:
+            wide = wide_triangles(args, kw)
+            emit({"phase": "edge", "kernel": "raster_bin", "case": label,
+                  "wide_list_pose_triangles": wide})
+            require(wide > 0, "no triangle reached the bin's wide list")
+        if "windows" in label:
+            windows, crossing = window_crossings(args, kw)
+            emit({"phase": "edge", "kernel": "raster_bin", "case": label,
+                  "windows": windows, "window_crossing_triangles": crossing})
+            require(windows > 1 and crossing > 0,
+                    "the bin's windows were not exercised")
 
 
 def ulp_steps(v: torch.Tensor, steps: int) -> torch.Tensor:
@@ -1137,9 +1321,8 @@ def check_cli_path(bp, backend: str) -> dict:
           "scenes_rendered": summary["scenes_rendered"],
           "detected": summary["detected"], "detection_error_mm": errors_mm,
           "launches": launches, "twin_calls": twins})
-    raster = RASTERS[backend]
-    require(launches.get(raster, 0) > 0
-            and all(launches.get(n, 0) > 0 for n in DEPTH[1:]),
+    require(all(launches.get(n, 0) > 0
+                for n in (*RASTER_KERNELS[backend], *DEPTH[1:])),
             f"cli {backend}: launches {launches}")
     require(launches.get("raster_direct", 0) == 0,
             f"cli {backend}: the direct raster ran")
@@ -1217,12 +1400,13 @@ def main() -> int:
              dict(use_color=True, roi_size=0), "cost_fused_color")):
         problems = {"auto": base}
         for backend in ("pallas", "pallas_bin"):
-            name = RASTERS[backend]
+            names = RASTER_KERNELS[backend]
             problems[backend] = problem(dev, kernel_backend=backend, **kw)
             res = check_kernels(
-                problems[backend], (name, "icp_fused", cost_kernel),
-                f"{case} batch, {backend}", only=(name,))[0][name]
-            results.setdefault(name, res)
+                problems[backend], (*names, "icp_fused", cost_kernel),
+                f"{case} batch, {backend}", only=names)[0]
+            for name in names:
+                results.setdefault(name, res[name])
         raster_ab(case, problems)
     # The real-sensor profile on the Kinect-degraded observation: the exact
     # fused ICP with source normals; then the fused ICP in its other modes
@@ -1313,8 +1497,9 @@ def main() -> int:
     # 6. The localize CLI on the bench scene as files, through the bin and
     # the coefficient-table raster.
     for backend in ("pallas_bin", "pallas"):
-        raster = RASTERS[backend]
-        launches[raster] = check_cli_path(depth, backend)[raster]
+        cli_launches = check_cli_path(depth, backend)
+        for name in RASTER_KERNELS[backend]:
+            launches[name] = cli_launches[name]
 
     # 7. Where a batch's time goes on the device, last: the profiler's CUPTI
     # session is the one process-wide state no other phase changes.

@@ -1,244 +1,253 @@
 // Scatter-bin rasteriser: model bank + poses in, packed depth/triangle keys
-// out, each pixel tile rasterised over its own list of triangle groups.
+// out, each warp patch rasterised over its own list of triangles.
 //
 // Replaces rasterize_bin_pallas (perception_tpu/ops/pallas_raster_bin.py:306,
-// kernel _kernel at :63-290). One block per pose, four phases:
-//   (a) per-triangle setup into shared memory: camera transform, backface
-//       cull, projection, edge / inverse-depth coefficients, in the direct
-//       kernel's order of operations, plus the TPU kernel's per-triangle
-//       guard (a triangle with a non-finite w, beta_c or gamma_c
-//       coefficient is culled);
-//   (b) screen bboxes of 16-triangle groups (xor shuffles within 16 lanes),
-//       widened by 1 px and turned into inclusive ranges of 8x16-pixel tiles
-//       in the TPU kernel's float order (:179-200);
-//   (c) per-tile counts and group lists in shared memory, filled with
-//       atomicAdd: the order of a list does not change a max, so the keys
-//       are deterministic;
-//   (d) threads walk (tile, pixel) pairs, 128 threads per tile, over their
-//       tile's list: coverage min(alpha, beta, gamma) >= 0 (no per-pixel test
-//       on w, as the TPU kernel), key (bits(w) & ~2047) | (2047 - tri_id),
-//       epilogue (rint(1/w) << 11) | tri_id; pixels of partial edge tiles
-//       are masked, and keys are written row-major (the TPU kernel's
-//       tile-major output and its caller's permutation are not needed).
+// kernel _kernel at :63-290). The TPU kernel bins 16-triangle groups,
+// since it cannot scatter single triangles (:10-14); a CUDA block can, with
+// shared-memory atomics. One block of 256 threads per pose:
+//   (a) per-triangle setup into shared memory (raster_setup.cuh with the
+//       TPU kernel's finite guard: a triangle with a non-finite w, beta_c or
+//       gamma_c coefficient is culled), and each drawable triangle's bin
+//       range: its screen box widened by 1 px, turned into inclusive ranges
+//       of 8x4-pixel patches of the strided ROI in the TPU kernel's float
+//       order (:179-200);
+//   (b) per window of patches (the whole ROI unless its counts outgrow the
+//       shared memory), the patch lists in three steps: a count pass (a
+//       shared atomicAdd per (triangle, patch), every thread busy), a block
+//       exclusive scan of the counts, and a fill pass of 16-bit triangle
+//       ids. A triangle whose range spans more than kMaxBins patches of the
+//       window goes to one "wide" list instead, so the lists hold at most
+//       T * kMaxBins ids at any T and ROI;
+//   (c) warp w rasterises patches w, w + 8, ...: each lane owns one pixel
+//       and walks its patch's list, then the wide list, skipping (as a
+//       whole warp) the wide triangles whose range misses the patch; three
+//       broadcast float4 loads per triangle. Coverage is
+//       min(alpha, beta, gamma) >= 0 (no per-pixel test on w, as the TPU
+//       kernel), the key (bits(w) & ~2047) | (2047 - tri_id), the epilogue
+//       (rint(1/w) << 11) | tri_id; pixels of partial edge patches are
+//       masked, and keys are written row-major (the TPU kernel's tile-major
+//       output and its caller's permutation are not needed).
+// The binning never drops a covering triangle: a covered pixel lies inside
+// its triangle's widened box (the premise of every box cull of this
+// repository's rasters, held on bench poses by
+// tests/test_torch_raster_keys_bin_cull.py), and every step from the box to
+// a patch index (divide, subtract, floor, clamp) is monotone in float32, so
+// the pixel's patch lies inside the triangle's range; the wide list's test
+// is that same range. A max does not depend on the order of its terms, so
+// the keys are those of the twin, which neither bins nor culls, and do not
+// depend on the order in which the atomics fill a list.
 //
 // What bounds it on the H100: the bank is read once per pose (a few hundred
-// KB for all poses) and the keys written once (8 MB at 2048 poses and a
+// KB for all poses) and the keys written once (8.4 MB at 2048 poses and a
 // 32x32 ROI); the work is the setup (~130 flops per triangle and pose) and
-// the coverage tests of the (pixel, triangle) pairs whose group bbox touches
-// the pixel's tile, which binning keeps close to the pairs inside the
-// triangles' own bboxes. Shared memory per block: 48 B per triangle plus the
-// lists (T = 256: ~13 KB; T = 2048 over an 80x60 frame: ~121 KB, opted in
-// above 48 KB).
+// the coverage tests of the (pixel, triangle) pairs of the patches each
+// triangle's box spans: 3 patches per drawn triangle on average at the
+// bench, about 3% of the dense pairs at the ROI and 0.7% at the 80x60 full
+// frame. Shared memory per block, all of it dynamic (so the window can use
+// every byte the block may opt in to): 82 B per triangle, 36 B for the scan's
+// warp sums and the wide list's count, and 4 B per patch of the window
+// (T = 256 at the ROI: 21 KB; T = 2048 over 640x480 at stride 1: 206 KB,
+// opted in above 48 KB).
 // Built with --fmad=false so every product rounds as in the PyTorch twin.
 
 #include <cuda_runtime.h>
 
+#include "raster_setup.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSubG = 16;                    // triangles per binned group
-constexpr int kTileH = 8, kTileW = 16;       // pixel tile (ROI rows x cols)
-constexpr int kTilePix = kTileH * kTileW;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPatchW = 8, kPatchH = 4;      // a warp's pixels (cols x rows)
+constexpr int kMaxBins = 8;                  // patches a binned triangle spans
 constexpr int kTriIdBits = 11;
 constexpr int kIdMask = (1 << kTriIdBits) - 1;
 constexpr float kMaxDepth = float((1 << 20) - 2);
 constexpr int kInvalidKey = 0x7fffffff;
-constexpr float kBig = 3e38f;
+
+// A triangle's patch range clipped to the window [wx0, wx0 + ww) x
+// [wy0, wy0 + wh); empty when r.x > r.y or r.z > r.w.
+__device__ __forceinline__ int4 clip(int4 r, int wx0, int wy0, int ww,
+                                     int wh) {
+  return make_int4(max(r.x, wx0), min(r.y, wx0 + ww - 1), max(r.z, wy0),
+                   min(r.w, wy0 + wh - 1));
+}
 
 __global__ void __launch_bounds__(kThreads) raster_bin_kernel(
-    const float* __restrict__ verts16,   // [M, 16, T], T a multiple of 16
+    const float* __restrict__ verts16,   // [M, 16, T]
     int T,
     const float* __restrict__ pose12,    // [N, 12] model->camera 3x4 (m)
     const int* __restrict__ model_ids,   // [N]
     const int* __restrict__ anchors,     // [N, 2] strided ROI origin (x0, y0)
     const float* __restrict__ proj12,    // [12] projection rows 0..2
     int width, int height, int stride, int roi_h, int roi_w, int ntx,
-    int nty, int* __restrict__ keys) {   // [N, roi_h * roi_w]
+    int nty, int win_w, int win_h,
+    int* __restrict__ keys) {            // [N, roi_h * roi_w]
   extern __shared__ float4 smem[];
-  const int n_sub = T / kSubG;
-  const int n_tiles = ntx * nty;
   float4* coef4 = smem;                                    // [T][3]
-  int4* ranges = reinterpret_cast<int4*>(coef4 + 3 * T);   // [n_sub]
-  int* counts = reinterpret_cast<int*>(ranges + n_sub);    // [n_tiles]
-  int* lists = counts + n_tiles;                           // [n_tiles][n_sub]
+  int4* range = reinterpret_cast<int4*>(coef4 + 3 * T);    // [T]
+  int* warp_sum = reinterpret_cast<int*>(range + T);       // [kWarps]
+  int& wide_n = warp_sum[kWarps];
+  int* ends = warp_sum + kWarps + 1;                       // [win_w * win_h]
+  // [T * kMaxBins] list slots, then [T] wide-list slots
+  unsigned short* list =
+      reinterpret_cast<unsigned short*>(ends + win_w * win_h);
+  unsigned short* wide = list + T * kMaxBins;
 
   const int n = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const int x0 = anchors[2 * n];
   const int y0 = anchors[2 * n + 1];
-  const float* vb = verts16 + (size_t)model_ids[n] * 16 * T;
-  float p[12], pr[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    p[i] = pose12[n * 12 + i];
-    pr[i] = proj12[i];
-  }
-  const float hw = 0.5f * (float)width;
-  const float hh = 0.5f * (float)height;
-  for (int i = tid; i < n_tiles; i += kThreads) counts[i] = 0;
 
-  // (a) + (b): setup and group tile ranges. Every thread takes part in the
-  // shuffles; groups of 16 lanes lie wholly inside or outside [0, T).
-  for (int base = 0; base < T; base += kThreads) {
-    const int t = base + tid;
-    const bool active = t < T;
-    float mnx = kBig, mxx = -kBig, mny = kBig, mxy = -kBig;
-    if (active) {
-      float cx[3], cy[3], cz[3];
-#pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        const float vx = vb[(3 * v) * T + t];
-        const float vy = vb[(3 * v + 1) * T + t];
-        const float vz = vb[(3 * v + 2) * T + t];
-        cx[v] = p[0] * vx + p[1] * vy + p[2] * vz + p[3];
-        cy[v] = p[4] * vx + p[5] * vy + p[6] * vz + p[7];
-        cz[v] = p[8] * vx + p[9] * vy + p[10] * vz + p[11];
-      }
-      const bool valid = vb[9 * T + t] > 0.5f;
-      const bool cullable = vb[10 * T + t] > 0.5f;
-      // Backface (camera at the origin): facing iff normal . v0 < 0.
-      const float e1x = cx[1] - cx[0], e1y = cy[1] - cy[0], e1z = cz[1] - cz[0];
-      const float e2x = cx[2] - cx[0], e2y = cy[2] - cy[0], e2z = cz[2] - cz[0];
-      const float nx = e1y * e2z - e1z * e2y;
-      const float ny = e1z * e2x - e1x * e2z;
-      const float nz = e1x * e2y - e1y * e2x;
-      const bool facing = (nx * cx[0] + ny * cy[0] + nz * cz[0]) < 0.0f;
-      bool ok = valid && (facing || !cullable);
-
-      float sx[3], sy[3], zc[3];
-#pragma unroll
-      for (int v = 0; v < 3; ++v) {
-        zc[v] = cz[v] * 100.0f;
-        ok = ok && (zc[v] > 1e-3f);
-        const float xc = cx[v] * 100.0f, yc = cy[v] * 100.0f;
-        const float clip_x = xc * pr[0] + yc * pr[1] + zc[v] * pr[2] + pr[3];
-        const float clip_y = yc * pr[5] + zc[v] * pr[6] + pr[7];
-        const float zdiv = zc[v] > 1e-3f ? zc[v] : 1.0f;
-        sx[v] = clip_x / zdiv * hw + hw;
-        sy[v] = clip_y / zdiv * hh + hh;
-      }
-      const float e20x = sx[2] - sx[0], e20y = sy[2] - sy[0];
-      const float e10x = sx[1] - sx[0], e10y = sy[1] - sy[0];
-      const float base_area = 0.5f * (e20x * e10y - e10x * e20y);
-      ok = ok && (fabsf(base_area) > 1e-2f);
-      const float sign = base_area >= 0.0f ? 1.0f : -1.0f;
-      const float inv_base = ok ? 1.0f / base_area : 0.0f;
-
-      const float beta_x = -0.5f * e20y * sign;
-      const float beta_y = 0.5f * e20x * sign;
-      const float beta_c = 0.5f * (sx[0] * e20y - sy[0] * e20x) * sign;
-      const float gamma_x = 0.5f * e10y * sign;
-      const float gamma_y = -0.5f * e10x * sign;
-      const float gamma_c = 0.5f * (sy[0] * e10x - sx[0] * e10y) * sign;
-
-      const float iz0 = ok ? 1.0f / zc[0] : 0.0f;
-      const float iz1 = ok ? 1.0f / zc[1] : 0.0f;
-      const float iz2 = ok ? 1.0f / zc[2] : 0.0f;
-      const float d1 = iz1 - iz0, d2 = iz2 - iz0;
-      const float w_x = (beta_x * sign * d1 + gamma_x * sign * d2) * inv_base;
-      const float w_y = (beta_y * sign * d1 + gamma_y * sign * d2) * inv_base;
-      const float w_c =
-          iz0 + (beta_c * sign * d1 + gamma_c * sign * d2) * inv_base;
-      ok = ok && isfinite(w_x) && isfinite(w_y) && isfinite(w_c) &&
-           isfinite(beta_c) && isfinite(gamma_c);
-      const float abs_base = ok ? fabsf(base_area) : -__int_as_float(0x7f800000);
-
-      coef4[3 * t] = make_float4(beta_x, beta_y, beta_c, gamma_x);
-      coef4[3 * t + 1] = make_float4(gamma_y, gamma_c, -beta_x - gamma_x,
-                                     -beta_y - gamma_y);
-      coef4[3 * t + 2] =
-          make_float4(abs_base - beta_c - gamma_c, w_x, w_y, w_c);
-      if (ok) {
-        mnx = fminf(sx[0], fminf(sx[1], sx[2]));
-        mxx = fmaxf(sx[0], fmaxf(sx[1], sx[2]));
-        mny = fminf(sy[0], fminf(sy[1], sy[2]));
-        mxy = fmaxf(sy[0], fmaxf(sy[1], sy[2]));
-      }
-    }
-#pragma unroll
-    for (int off = kSubG / 2; off > 0; off >>= 1) {
-      mnx = fminf(mnx, __shfl_xor_sync(0xffffffffu, mnx, off, kSubG));
-      mxx = fmaxf(mxx, __shfl_xor_sync(0xffffffffu, mxx, off, kSubG));
-      mny = fminf(mny, __shfl_xor_sync(0xffffffffu, mny, off, kSubG));
-      mxy = fmaxf(mxy, __shfl_xor_sync(0xffffffffu, mxy, off, kSubG));
-    }
-    if (active && t % kSubG == 0) {
-      const float sxmin = mnx - 1.0f, sxmax = mxx + 1.0f;
-      const float symin = mny - 1.0f, symax = mxy + 1.0f;
-      // ROI col = px / stride - x0; ROI row = (H - 1 - py) / stride - y0.
-      const float fs = (float)stride;
-      const float cx0 = sxmin / fs - (float)x0;
-      const float cx1 = sxmax / fs - (float)x0;
-      const float ry0 = ((float)(height - 1) - symax) / fs - (float)y0;
-      const float ry1 = ((float)(height - 1) - symin) / fs - (float)y0;
-      const bool off = sxmin > sxmax || cx1 < 0.0f ||
-                       cx0 > (float)(roi_w - 1) || ry1 < 0.0f ||
-                       ry0 > (float)(roi_h - 1);
-      const float ltx = (float)(ntx - 1), lty = (float)(nty - 1);
-      int4 r;
-      r.x = (int)fminf(fmaxf(floorf(cx0 / (float)kTileW), 0.0f), ltx);
-      r.y = (int)fminf(fmaxf(floorf(cx1 / (float)kTileW), 0.0f), ltx);
-      r.z = (int)fminf(fmaxf(floorf(ry0 / (float)kTileH), 0.0f), lty);
-      r.w = (int)fminf(fmaxf(floorf(ry1 / (float)kTileH), 0.0f), lty);
-      if (off) {
-        r.x = 1;   // an empty column range
-        r.y = 0;
-      }
-      ranges[t / kSubG] = r;
-    }
-  }
-  __syncthreads();
-
-  // (c) Scatter each group into the list of every tile in its range.
-  for (int s = tid; s < n_sub; s += kThreads) {
-    const int4 r = ranges[s];
-    for (int ty = r.z; ty <= r.w; ++ty) {
-      for (int tx = r.x; tx <= r.y; ++tx) {
-        const int tile = ty * ntx + tx;
-        lists[tile * n_sub + atomicAdd(&counts[tile], 1)] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-  // (d) Raster: kThreads / 128 tiles at a time, one pixel per thread.
-  const int npix = roi_h * roi_w;
-  const int q = tid % kTilePix;
-  for (int j0 = 0; j0 < n_tiles; j0 += kThreads / kTilePix) {
-    const int j = j0 + tid / kTilePix;
-    if (j >= n_tiles) break;
-    const int col = (j % ntx) * kTileW + q % kTileW;
-    const int row = (j / ntx) * kTileH + q / kTileW;
-    const float px = (float)((x0 + col) * stride);
-    const float py = (float)(height - 1 - (y0 + row) * stride);
-    int best = 0;
-    const int count = counts[j];
-    for (int i = 0; i < count; ++i) {
-      const int s = lists[j * n_sub + i];
-#pragma unroll 4
-      for (int g = 0; g < kSubG; ++g) {
-        const int tri = s * kSubG + g;
-        const float4 c0 = coef4[3 * tri];       // bx by bc gx
-        const float4 c1 = coef4[3 * tri + 1];   // gy gc ax ay
-        const float4 c2 = coef4[3 * tri + 2];   // ac wx wy wc
-        const float beta = c0.x * px + c0.y * py + c0.z;
-        const float gamma = c0.w * px + c1.x * py + c1.y;
-        const float alpha = c1.z * px + c1.w * py + c2.x;
-        const float w = c2.y * px + c2.z * py + c2.w;
-        if (alpha >= 0.0f && beta >= 0.0f && gamma >= 0.0f) {
-          best = max(best, (__float_as_int(w) & ~kIdMask) | (kIdMask - tri));
+  // (a) Setup and patch ranges.
+  {
+    const raster_setup::Pose ps =
+        raster_setup::load_pose(pose12, proj12, n, width, height);
+    const float* vb = verts16 + (size_t)model_ids[n] * 16 * T;
+    const float fs = (float)stride;
+    const float ltx = (float)(ntx - 1), lty = (float)(nty - 1);
+    for (int t = tid; t < T; t += kThreads) {
+      const raster_setup::Triangle tri =
+          raster_setup::setup<true>(vb, T, t, ps);
+      coef4[3 * t] = tri.c0;
+      coef4[3 * t + 1] = tri.c1;
+      coef4[3 * t + 2] = tri.c2;
+      int4 r = make_int4(1, 0, 1, 0);   // empty
+      if (tri.ok) {
+        const float sxmin = tri.xmin - 1.0f, sxmax = tri.xmax + 1.0f;
+        const float symin = tri.ymin - 1.0f, symax = tri.ymax + 1.0f;
+        // ROI col = px / stride - x0; ROI row = (H - 1 - py) / stride - y0.
+        const float cx0 = sxmin / fs - (float)x0;
+        const float cx1 = sxmax / fs - (float)x0;
+        const float ry0 = ((float)(height - 1) - symax) / fs - (float)y0;
+        const float ry1 = ((float)(height - 1) - symin) / fs - (float)y0;
+        const bool off = cx1 < 0.0f || cx0 > (float)(roi_w - 1) ||
+                         ry1 < 0.0f || ry0 > (float)(roi_h - 1);
+        if (!off) {
+          r.x = (int)fminf(fmaxf(floorf(cx0 / (float)kPatchW), 0.0f), ltx);
+          r.y = (int)fminf(fmaxf(floorf(cx1 / (float)kPatchW), 0.0f), ltx);
+          r.z = (int)fminf(fmaxf(floorf(ry0 / (float)kPatchH), 0.0f), lty);
+          r.w = (int)fminf(fmaxf(floorf(ry1 / (float)kPatchH), 0.0f), lty);
         }
       }
+      range[t] = r;
     }
-    if (col < roi_w && row < roi_h) {
-      int key = kInvalidKey;
-      if (best > 0) {
-        const float w_win =
-            __int_as_float((best & ~kIdMask) | (1 << (kTriIdBits - 1)));
-        const float depth = fminf(fmaxf(rintf(1.0f / w_win), 1.0f), kMaxDepth);
-        key = ((int)depth << kTriIdBits) | (kIdMask - (best & kIdMask));
+  }
+
+  const int npix = roi_h * roi_w;
+  for (int wy0 = 0; wy0 < nty; wy0 += win_h) {
+    for (int wx0 = 0; wx0 < ntx; wx0 += win_w) {
+      const int ww = min(win_w, ntx - wx0), wh = min(win_h, nty - wy0);
+      const int nb = ww * wh;
+      for (int b = tid; b < nb; b += kThreads) ends[b] = 0;
+      if (tid == 0) wide_n = 0;
+      __syncthreads();   // also publishes (a) to the first window
+
+      // (b) Count pass.
+      for (int t = tid; t < T; t += kThreads) {
+        const int4 c = clip(range[t], wx0, wy0, ww, wh);
+        if (c.x > c.y || c.z > c.w ||
+            (c.y - c.x + 1) * (c.w - c.z + 1) > kMaxBins) {
+          continue;
+        }
+        for (int by = c.z; by <= c.w; ++by) {
+          for (int bx = c.x; bx <= c.y; ++bx) {
+            atomicAdd(&ends[(by - wy0) * ww + bx - wx0], 1);
+          }
+        }
       }
-      keys[(size_t)n * npix + row * roi_w + col] = key;
+      __syncthreads();
+
+      // Exclusive scan of the counts: thread i takes the i-th run of `per`
+      // patches; warp shuffles and the warps' sums give its offset.
+      {
+        const int per = (nb + kThreads - 1) / kThreads;
+        const int b0 = min(tid * per, nb), b1 = min(b0 + per, nb);
+        int sum = 0;
+        for (int b = b0; b < b1; ++b) sum += ends[b];
+        int incl = sum;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += v;
+        }
+        if (lane == 31) warp_sum[warp] = incl;
+        __syncthreads();
+        int run = incl - sum;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) run += w < warp ? warp_sum[w] : 0;
+        for (int b = b0; b < b1; ++b) {
+          const int c = ends[b];
+          ends[b] = run;
+          run += c;
+        }
+      }
+      __syncthreads();
+
+      // Fill pass: ends[b] runs from patch b's start to its end.
+      for (int t = tid; t < T; t += kThreads) {
+        const int4 c = clip(range[t], wx0, wy0, ww, wh);
+        if (c.x > c.y || c.z > c.w) continue;
+        if ((c.y - c.x + 1) * (c.w - c.z + 1) > kMaxBins) {
+          wide[atomicAdd(&wide_n, 1)] = (unsigned short)t;
+          continue;
+        }
+        for (int by = c.z; by <= c.w; ++by) {
+          for (int bx = c.x; bx <= c.y; ++bx) {
+            list[atomicAdd(&ends[(by - wy0) * ww + bx - wx0], 1)] =
+                (unsigned short)t;
+          }
+        }
+      }
+      __syncthreads();
+
+      // (c) Raster: warp w takes patches w, w + 8, ...
+      const int n_wide = wide_n;
+      for (int b = warp; b < nb; b += kWarps) {
+        const int bx = wx0 + b % ww, by = wy0 + b / ww;
+        const int col = bx * kPatchW + lane % kPatchW;
+        const int row = by * kPatchH + lane / kPatchW;
+        const float px = (float)((x0 + col) * stride);
+        const float py = (float)(height - 1 - (y0 + row) * stride);
+        int best = 0;
+        const int first = b > 0 ? ends[b - 1] : 0;
+        const int last = ends[b];
+        for (int i = first; i < last + n_wide; ++i) {
+          int t;
+          if (i < last) {
+            t = list[i];
+          } else {
+            t = wide[i - last];
+            const int4 r = range[t];
+            if (bx < r.x || bx > r.y || by < r.z || by > r.w) {
+              continue;   // uniform across the warp
+            }
+          }
+          const float4 c0 = coef4[3 * t];       // bx by bc gx
+          const float4 c1 = coef4[3 * t + 1];   // gy gc ax ay
+          const float4 c2 = coef4[3 * t + 2];   // ac wx wy wc
+          const float beta = c0.x * px + c0.y * py + c0.z;
+          const float gamma = c0.w * px + c1.x * py + c1.y;
+          const float alpha = c1.z * px + c1.w * py + c2.x;
+          const float w = c2.y * px + c2.z * py + c2.w;
+          if (alpha >= 0.0f && beta >= 0.0f && gamma >= 0.0f) {
+            best = max(best, (__float_as_int(w) & ~kIdMask) | (kIdMask - t));
+          }
+        }
+        if (col < roi_w && row < roi_h) {
+          int key = kInvalidKey;
+          if (best > 0) {
+            const float w_win =
+                __int_as_float((best & ~kIdMask) | (1 << (kTriIdBits - 1)));
+            const float depth =
+                fminf(fmaxf(rintf(1.0f / w_win), 1.0f), kMaxDepth);
+            key = ((int)depth << kTriIdBits) | (kIdMask - (best & kIdMask));
+          }
+          keys[(size_t)n * npix + row * roi_w + col] = key;
+        }
+      }
+      __syncthreads();   // the window's lists are rebuilt by the next window
     }
   }
 }
@@ -248,17 +257,20 @@ __global__ void __launch_bounds__(kThreads) raster_bin_kernel(
 extern "C" int pt_raster_bin(const float* verts16, int T, const float* pose12,
                              const int* model_ids, const int* anchors,
                              const float* proj12, int N, int width, int height,
-                             int stride, int roi_h, int roi_w, int smem_bytes,
-                             int* keys, void* stream) {
+                             int stride, int roi_h, int roi_w, int win_w,
+                             int win_h, int smem_bytes, int* keys,
+                             void* stream) {
   if (N == 0 || roi_h * roi_w == 0) return 0;
-  const int ntx = (roi_w + kTileW - 1) / kTileW;
-  const int nty = (roi_h + kTileH - 1) / kTileH;
-  cudaError_t err = cudaFuncSetAttribute(
-      raster_bin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
+  const int ntx = (roi_w + kPatchW - 1) / kPatchW;
+  const int nty = (roi_h + kPatchH - 1) / kPatchH;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        raster_bin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   raster_bin_kernel<<<N, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       verts16, T, pose12, model_ids, anchors, proj12, width, height, stride,
-      roi_h, roi_w, ntx, nty, keys);
+      roi_h, roi_w, ntx, nty, win_w, win_h, keys);
   return (int)cudaGetLastError();
 }

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "pt_raster_direct": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
                          _P),
     "pt_raster_keys": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "pt_keys_setup": (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "pt_raster_bin": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _P, _P),
+                      _I, _I, _P, _P),
     "pt_icp_fused": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _F, _F,
                      _F, _I, _F, _F, _F, _F, _P, _P),
     "pt_cost_fused": (_P, _P, _P, _I, _I, _I, _F, _P, _P),

@@ -3,8 +3,9 @@
 Counterpart of `perception_tpu/ops/rasterizer.py`. `backend` picks the
 raster, as the JAX package's kernel backends do: the direct kernel
 (`ops/raster_direct.py`; "auto", "pallas_direct"), the coefficient-table
-kernel (`ops/raster_keys.py`; "pallas") fed by the per-pose triangle setup
-below in plain PyTorch, or the scatter-bin kernel (`ops/raster_bin.py`;
+kernel (`ops/raster_keys.py`; "pallas") fed by a per-pose triangle setup
+(one kernel launch on the card; `keys_setup` below in plain PyTorch on the
+CPU), or the scatter-bin kernel (`ops/raster_bin.py`;
 "pallas_bin"). The packed keys become depth (int cm), winning triangle id
 and face colour; then the occlusion pass against the observed source images
 removes render pixels hidden behind closer source geometry of another
@@ -235,12 +236,19 @@ def render_pose_batch(
     geometry = dict(width=width, height=height, stride=stride,
                     roi_shape=roi_shape)
     if backend == "pallas":
-        coefs, abs_base, ok, bboxes = keys_setup(
-            bank_tri_verts, bank_tri_valid, pose_mats, ids, proj, width,
-            height, bank_backface)
-        keys = raster_keys.rasterize_keys(
-            raster_keys.pack_coefficients(coefs, abs_base, ok), bboxes,
-            anchors, **geometry)
+        # The table's setup: one kernel launch on the card, PyTorch on the
+        # CPU.
+        if dev.type == "cpu":
+            coefs, abs_base, ok, bboxes = keys_setup(
+                bank_tri_verts, bank_tri_valid, pose_mats, ids, proj, width,
+                height, bank_backface)
+            table = raster_keys.pack_coefficients(coefs, abs_base, ok)
+        else:
+            table, bboxes = raster_keys.setup_table(
+                raster_direct.pack_bank_verts(bank_tri_verts, bank_tri_valid,
+                                              bank_backface),
+                pose_mats, ids, proj, width=width, height=height)
+        keys = raster_keys.rasterize_keys(table, bboxes, anchors, **geometry)
     else:
         verts16 = raster_direct.pack_bank_verts(bank_tri_verts, bank_tri_valid,
                                                 bank_backface)

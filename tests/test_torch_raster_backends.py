@@ -159,23 +159,29 @@ def test_keys_setup_and_packing_match_jax():
 
 
 def test_chunk_bboxes_pad_and_widen():
-    """prepare_inputs: per-256-triangle chunk boxes widened by 1 px, the
-    ragged last chunk padded with empty boxes, culled triangles ignored."""
+    """prepare_inputs hands the kernel each triangle's own screen box as it
+    comes (the kernel widens it by 1 px and culls per triangle; there are no
+    per-chunk boxes to pad or widen any more), as contiguous f32 beside the
+    f32 coefficients and int32 anchors (zeros for the full frame)."""
     inf = float("inf")
     boxes = torch.tensor([[[10.0, 20.0, 5.0, 9.0], [inf, -inf, inf, -inf],
-                           [12.0, 30.0, 1.0, 4.0]]])
-    coefs = torch.zeros((1, 3, 12))
-    (c, chunk, a), kw = raster_keys.prepare_inputs(
-        coefs, boxes, torch.zeros((1, 2), dtype=torch.int32), width=64,
-        height=48, stride=2, roi_shape=(8, 8))
-    np.testing.assert_array_equal(chunk.numpy(), [[[9.0, 31.0, 0.0, 10.0]]])
+                           [12.0, 30.0, 1.0, 4.0]]], dtype=torch.float64)
+    (c, b, a), kw = raster_keys.prepare_inputs(
+        torch.zeros((1, 3, 12), dtype=torch.float64), boxes,
+        torch.ones((1, 2), dtype=torch.int64), width=64, height=48, stride=2,
+        roi_shape=(8, 8))
+    assert (c.dtype, b.dtype, a.dtype) == (torch.float32, torch.float32,
+                                           torch.int32)
+    np.testing.assert_array_equal(b.numpy(), boxes.numpy())
+    np.testing.assert_array_equal(a.numpy(), [[1, 1]])
     assert kw == dict(height=48, stride=2, roi_h=8, roi_w=8)
-    empty = torch.full((1, 300, 4), inf) * torch.tensor([1.0, -1, 1, -1])
-    (_, chunk, _), _ = raster_keys.prepare_inputs(
-        torch.zeros((1, 300, 12)), empty, None, width=64, height=48,
+    strided = torch.zeros((2, 4, 300)).transpose(1, 2)
+    (_, b, a), kw = raster_keys.prepare_inputs(
+        torch.zeros((2, 300, 12)), strided, None, width=64, height=48,
         stride=2)
-    assert chunk.shape == (1, 2, 4)
-    assert (chunk[..., 0] > chunk[..., 1]).all()
+    assert b.shape == (2, 300, 4) and b.is_contiguous()
+    assert a.dtype == torch.int32 and not a.any() and a.shape == (2, 2)
+    assert (kw["roi_h"], kw["roi_w"]) == (24, 32)
 
 
 @pytest.mark.parametrize("roi", ROIS)
@@ -226,19 +232,35 @@ def test_bin_keys_equal_direct_keys(roi):
 
 
 def test_bin_prepare_pads_to_groups_and_sizes_shared_memory():
+    """The bin kernel takes the direct raster's arguments as they are (no
+    padding: it bins single triangles, not 16-triangle groups). Its shared
+    memory, all of it dynamic, is 82 B per triangle, 36 B for the block,
+    and 4 B per 8x4-pixel patch of the window it bins at a time: the whole
+    ROI, unless that outgrows the block's shared memory, at any T up to
+    2048."""
     v16 = torch.zeros((2, 16, 20))
-    (padded, *_), kw = raster_bin.prepare_inputs(
+    (same, *_), kw = raster_bin.prepare_inputs(
         v16, torch.eye(4)[None].repeat(3, 1, 1), torch.zeros(3),
         torch.zeros((3, 2)), torch.eye(4), width=640, height=480, stride=8,
         roi_shape=(32, 32))
-    assert padded.shape == (2, 16, 32) and kw["roi_h"] == 32
-    # 8 tiles of 8x16 over 32x32; 2 groups of 16 triangles.
-    assert raster_bin.shared_bytes(32, 32, 32) == 32 * 48 + 2 * 16 + 8 * 4 \
-        + 8 * 2 * 4
-    # T = 2048 over the 80x60 strided frame: 40 tiles, 128 groups.
-    assert raster_bin.shared_bytes(2048, 60, 80) == (
-        2048 * 48 + 128 * 16 + 40 * 4 + 40 * 128 * 4)
-    assert raster_bin.shared_bytes(2048, 60, 80) <= raster_bin.MAX_SHARED_BYTES
+    assert same.shape == (2, 16, 20) and kw["roi_h"] == 32
+    # 4 x 8 patches over 32x32.
+    assert raster_bin.window(32, 32, 32) == (4, 8)
+    assert raster_bin.shared_bytes(32, 32, 32) == 32 * 82 + 36 + 4 * 32
+    # T = 2048 over the 80x60 strided frame: 10 x 15 patches.
+    assert raster_bin.shared_bytes(2048, 60, 80) == 2048 * 82 + 36 + 4 * 150
+    # T = 2048 at 640x480 stride 1 fits whole; a 4000x4000 ROI in windows
+    # of 500 x 32 patches.
+    assert raster_bin.window(2048, 480, 640) == (80, 120)
+    assert raster_bin.window(2048, 4000, 4000) == (500, 32)
+    # T = 16 over 1984x932: 248 x 233 patches, 9 more than the counts that
+    # fit beside the triangles and the block's 36 B, so two windows.
+    assert raster_bin.window(16, 932, 1984) == (248, 232)
+    for t in (16, 256, 2048):
+        for roi in ((60, 80), (480, 640), (932, 1984), (4000, 4000),
+                    (8, 600000)):
+            assert raster_bin.shared_bytes(t, *roi) <= \
+                raster_bin.MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("name", ["raster_keys", "raster_bin"])
