@@ -18,13 +18,25 @@ requests through the port's HTTP service on five paths (depth ROI, colour
 ROI, colour full frame, real-sensor profile, gicp), and runs the `localize`
 CLI on the bench scene written as files (PLY models, PNG images, poses.txt,
 a JSON config) with kernel_backend "pallas_bin" and "pallas", checking the
-detections against the ground truth. The 1-NN kernel, the three rasters
-and the keys path's setup, the fused ICP (every mode) and the three cost
-kernels are also held against their twins at edge shapes (several
+detections against the ground truth. Then the search modes on a 3-DoF
+table-top scene (`eval/table_scene.py`: three bumpy1024 models on a table,
+640x480 at stride 24, batches of 1100, 15 ICP iterations, a Kinect-degraded
+depth frame in mm): the grid successors, each kernel of the greedy-ICP batch
+against its twin (the Lab colour cost on a use_color_cost variant), the
+tree's batch (no ICP) through the bin raster against the twins, one tree
+expansion with tree occlusion against the CPU twins (every unflagged pose
+among those compared), served "greedy_icp" (each object within 30 mm) and
+"tree" requests and an MHA* plan (within one grid step in x and y, and
+theta_res in yaw), the CLI in both modes (the tree through the bin
+raster), and the scene at the configuration defaults (detections printed,
+no bar). The 1-NN kernel, the three
+rasters and the keys path's setup, the fused ICP (every mode) and the three
+cost kernels are also held against their twins at edge shapes (several
 reference tiles, ties, a pose with no valid reference; one pose, a 24x24
 ROI, T = 200, T = 1024 at 640x480 stride 1, a pose behind the camera,
 T = 2048 over the 80x60 frame, T = 336 at 640x480, poses close enough to
-fill the bin raster's wide list; poses without a valid target or
+fill the bin raster's wide list, the 26x20 grid of 640x480 at stride 24;
+poses without a valid target or
 source, targets at max_correspondence / sensor_resolution +-1 ulp, N = 1,
 N = 13, P = 77 with S = 45, a cost with P = 15000; for the colour costs
 also only explain-only points, tied targets whose copies fail the gate
@@ -48,10 +60,10 @@ rasters count the pixels inside each drawn triangle's screen bounding box
 (the coefficient-table raster without the setup, which it does not run;
 the setup kernel its 130 operations per pose and triangle),
 ICP the iterations and association sweeps each pose of this run ran, the
-colour gate the points of this run that reach it. For the ICP and the three
-cost kernels, `bound_valid_ms` counts the same work over valid (point,
-target) pairs only (and the colour gates), with `valid_pair_share` their
-share of the dense pairs.
+colour gate the points of this run that reach it. The ICP and the three
+cost kernels sweep only valid (point, target) pairs, so their `bound_ms`
+counts those (and the colour gates); `bound_dense_ms` counts every pair, and
+`valid_pair_share` is the valid pairs' share of them.
 """
 
 from __future__ import annotations
@@ -75,7 +87,10 @@ import numpy as np
 import torch
 
 from perception_tpu_torch import cli
+from perception_tpu_torch.core.pose import ContPose
+from perception_tpu_torch.eval import table_scene
 from perception_tpu_torch.eval.bench_scene import bench_meshes, build_bench_problem
+from perception_tpu_torch.eval.table_scene import build_table_scene
 from perception_tpu_torch.io.images import write_png
 from perception_tpu_torch.kernels import build
 from perception_tpu_torch.ops import (
@@ -91,7 +106,13 @@ from perception_tpu_torch.ops import (
 )
 from perception_tpu_torch.ops import icp as icp_ops
 from perception_tpu_torch.pipeline import scorer
+from perception_tpu_torch.pipeline.heuristics import (
+    Detection,
+    DetectionHeuristicFactory,
+)
+from perception_tpu_torch.pipeline.mha_star import MHAStarPlanner
 from perception_tpu_torch.pipeline.recognizer import ObjectRecognizer
+from perception_tpu_torch.pipeline.search import TreeSearch
 from perception_tpu_torch.serve import serve
 
 N_POSES = 2048
@@ -580,15 +601,19 @@ def kernel_phase(name: str, call: tuple, label: str) -> dict:
                                  reps=5)
     ops, moved = work(name, pargs, pkw, out_k, extra)
     t_ops, t_bytes = ops / FP32_FLOPS * 1e3, moved / HBM_BYTES * 1e3
+    # The bound counts the work this run's data needs: over valid pairs for
+    # the kernels that sweep only those (the dense count beside it).
+    valid = valid_work(name, pargs, pkw, extra)
+    if valid is not None:
+        result.update(ops_dense=ops, bound_dense_ms=max(t_ops, t_bytes),
+                      valid_pair_share=valid[1])
+        ops = valid[0]
+        t_ops = ops / FP32_FLOPS * 1e3
     result.update(ops=ops, bytes=moved, bound_ms=max(t_ops, t_bytes),
                   bound_by="operations" if t_ops >= t_bytes else "bytes",
                   library_ms=library_ms(name, pargs), **iterations)
     if name == "raster_keys":
         result["table_rows_read"] = extra[1]
-    valid = valid_work(name, pargs, pkw, extra)
-    if valid is not None:
-        result.update(bound_valid_ms=max(valid[0] / FP32_FLOPS * 1e3, t_bytes),
-                      valid_pair_share=valid[1])
     shapes = [list(a.shape) for a in pargs if isinstance(a, torch.Tensor)]
     emit({"phase": "kernel", "kernel": name, "case": label,
           "shapes": shapes, **result})
@@ -949,7 +974,9 @@ def raster_edge_cases() -> None:
     took it at 230,160 B) for 2 of those poses and 2 of the batch's, which
     the bin raster covers in two windows of patches, each ROI anchored in a
     2048x3584 frame so that its tallest triangle crosses from one window
-    into the next."""
+    into the next; T = 1024 over the 640x480 frame at stride 24, the 3-DoF
+    search's 26x20 grid, whose last column of 8x4 patches is 2 pixels wide,
+    for the 8 candidate poses and for the 8 poses at 0.16 m."""
     pargs, pkw = INPUTS["raster_direct", ROI_CASE]
     verts16, pose12, ids, anchors, proj12 = pargs
     frame_verts, _, _, frame_anchors, _ = INPUTS["raster_direct",
@@ -957,6 +984,8 @@ def raster_edge_cases() -> None:
     frame_kw = INPUTS["raster_direct", FRAME_CASE][1]
     full_kw = INPUTS["raster_direct", FULL_CASE][1]
     frame8 = frame_anchors[:1].expand(8, 2).contiguous()
+    grid24_kw = {**frame_kw, "stride": 24, "roi_h": frame_kw["height"] // 24,
+                 "roi_w": frame_kw["width"] // 24}
     behind = pose12[:4].clone()
     behind[1, 11] = -behind[1, 11]              # z translation negated
     near = pose12[:8].clone()
@@ -985,7 +1014,13 @@ def raster_edge_cases() -> None:
         ("T=1024, 640x480 stride 1, 8 poses at 0.16 m (wide list)",
          (frame_verts, near, ids[:8], frame8, proj12), frame_kw),
         ("T=16, 2048x1792 ROI of a 2048x3584 frame, stride 1, 4 poses "
-         "(bin windows)", windows_args, windows_kw)]
+         "(bin windows)", windows_args, windows_kw),
+        ("T=1024, 640x480 stride 24 (26x20, partly filled patches), 8 poses",
+         (frame_verts, pose12[:8], ids[:8], torch.zeros_like(frame8),
+          proj12), grid24_kw),
+        ("T=1024, 640x480 stride 24 (26x20, partly filled patches), 8 poses "
+         "at 0.16 m", (frame_verts, near, ids[:8], torch.zeros_like(frame8),
+                       proj12), grid24_kw)]
     require(frame_verts.shape[0] == verts16.shape[0],
             "the observation bank has the scoring bank's models")
     for label, args, kw in cases:
@@ -1330,6 +1365,366 @@ def check_cli_path(bp, backend: str) -> dict:
     return launches
 
 
+# -- The search modes on the 3-DoF table-top scene ---------------------------
+
+TABLE_CASE = "3-DoF table batch"
+TABLE_COLOR_CASE = "3-DoF table batch, colour"
+TABLE_BIN_CASE = "3-DoF table batch, pallas_bin, no ICP"
+# Detections of the greedy-ICP baseline (refined by ICP) must lie within
+# 30 mm in (x, y) of the ground truth; those of the tree and MHA* are grid
+# poses: within one grid step in x and in y, and theta_res in yaw.
+ICP_BAR = "30 mm in (x, y)"
+GRID_BAR = "res in x and in y, theta_res in yaw"
+TREE_OCCLUSION_CM = 3.0
+MIN_UNFLAGGED = 8
+
+
+class TableBatch:
+    """One `score_object_states` call on the table scene's first
+    `gpu_batch_size` grid candidates: with ICP, as the greedy-ICP baseline
+    scores them, or without, as a tree expansion does; `score` is what
+    check_kernels records."""
+
+    def __init__(self, scene, do_icp: bool = True):
+        self.env = scene.env
+        self.do_icp = do_icp
+        self.env.set_input(scene.rin)
+        cands = self.env.generate_successors_3dof()
+        self.candidates = cands[:self.env.perch.gpu_batch_size]
+
+    def score(self, cfg=None):
+        return self.env.score_object_states(self.candidates,
+                                            do_icp=self.do_icp)
+
+
+def make_table_scene(dev, **kw):
+    t0 = time.perf_counter()
+    scene = build_table_scene(device=dev, **kw)
+    sync()
+    emit({"phase": "table_scene", **kw, "seconds": time.perf_counter() - t0,
+          "placements": [list(p) for p in table_scene.PLACEMENTS],
+          "region": table_scene.REGION,
+          "table_height": table_scene.TABLE_HEIGHT})
+    return scene
+
+
+def check_successors(scene) -> list:
+    env = scene.env
+    env.set_input(scene.rin)
+    sync()
+    t0 = time.perf_counter()
+    succ = env.generate_successors_3dof()
+    ms = (time.perf_counter() - t0) * 1e3
+    per_model = [sum(1 for s in succ if s.id == i)
+                 for i in range(len(env.bank.models))]
+    near_gt = [sum(1 for s in succ if s.id == g.id
+                   and abs(s.pose.x - g.pose.x) <= env.env.res / 2
+                   and abs(s.pose.y - g.pose.y) <= env.env.res / 2)
+               for g in scene.gt]
+    emit({"phase": "successors", "grid": len(env.grid_3dof()),
+          "valid": len(succ), "valid_per_model": per_model,
+          "valid_at_gt_cell": near_gt, "host_ms": ms,
+          "observed_points": int(env._observed.count.item())})
+    require(all(n > 0 for n in near_gt), f"a GT cell was pruned: {near_gt}")
+    require(max(per_model) <= 512,
+            f"more than the tree's 512 candidates per model: {per_model}")
+    return succ
+
+
+def check_tree_occlusion(scene, succ) -> None:
+    """One tree expansion with use_tree_occlusion: ground-truth object 0
+    composed onto the observation, every candidate of the other models
+    scored against it on the card; N_CPU of them on the CPU twins: every
+    pose the card left unflagged (at least MIN_UNFLAGGED, so the fused cost
+    is compared on poses that score against the composed source), then
+    flagged ones in order. The occlusion threshold is TREE_OCCLUSION_CM: at
+    the default 1 cm the Kinect noise puts part of every render in front of
+    the source, and every pose is flagged."""
+    env = scene.env
+    search = TreeSearch(env)
+    node = search.root()
+    depth, label = search._compose(node, scene.gt[0])
+    cands = [s for s in succ if s.id != 0][:env.perch.gpu_batch_size]
+    composed = dataclasses.replace(
+        env._scene, source_depth=env._tensor(depth, torch.int32),
+        source_label=env._tensor(label, torch.int32))
+    saved = env.perch
+    env.perch = dataclasses.replace(env.perch, use_tree_occlusion=True,
+                                    gpu_occlusion_threshold=TREE_OCCLUSION_CM)
+    try:
+        cfg = env._scorer_config(do_icp=False)
+    finally:
+        env.perch = saved
+    require(cfg.use_tree_occlusion and cfg.cost_type == 0
+            and not cfg.use_segmentation_label, "tree-occlusion config")
+    poses = np.stack([env.pose_to_camera(s) for s in cands])
+    ids = np.asarray([s.id for s in cands], np.int64)
+    labels = np.zeros(len(cands), np.int64)
+    totals = env._observed_totals(cands, labels)
+    rb = env._render_bank
+    args = (env._tensor(poses, torch.float32), env._tensor(ids),
+            env._tensor(labels), env._tensor(totals, torch.float32))
+    kw = dict(bank_backface=rb[3], bank_icp_samples=env._bank_icp_samples,
+              bank_icp_normals=env._bank_icp_normals,
+              bank_tri_lab=env._render_bank_lab)
+
+    def score():
+        return scorer.score_pose_batch(*rb[:3], *args, env._proj, composed,
+                                       cfg, **kw)
+    build.reset_counts()
+    out = score()
+    sync()
+    launches = dict(build.LAUNCHES)
+    batch_ms = time_ms(score, warmup=1, reps=10)
+    flags = out.pose_occluded.cpu()
+    # Unflagged first (stable, so each group keeps its order), N_CPU of them.
+    sel = torch.sort(torch.argsort(flags, stable=True)[:N_CPU]).values
+    t0 = time.perf_counter()
+    ref = scorer.score_pose_batch(
+        *(t.cpu() for t in rb[:3]), *(a.cpu()[sel] for a in args),
+        env._proj.cpu(), cpu_scene(composed), cfg,
+        **{k: v.cpu() for k, v in kw.items()})
+    cpu_s = time.perf_counter() - t0
+    g_tot = out.total_cost.cpu()[sel]
+    diffs = (g_tot - ref.total_cost).abs()
+    eq = (g_tot == ref.total_cost).float().mean().item()
+    open_ = flags[sel] == 0
+    emit({"phase": "tree_occlusion", "poses": len(cands),
+          "occlusion_threshold_cm": TREE_OCCLUSION_CM,
+          "flagged": int(flags.sum()), "batch_ms": batch_ms,
+          "launches": launches, "cpu_twin_poses": len(sel),
+          "cpu_twin_unflagged": int(open_.sum()),
+          "cpu_twin_unflagged_scored": int((ref.total_cost[open_] >= 0).sum()),
+          "cpu_twin_s": cpu_s,
+          "flags_equal_cpu": bool(torch.equal(flags[sel], ref.pose_occluded)),
+          "total_equal_frac": eq,
+          "unflagged_total_equal_frac": (
+              (g_tot == ref.total_cost)[open_].float().mean().item()),
+          "total_max_diff": diffs.max().item()})
+    require(torch.equal(flags[sel], ref.pose_occluded),
+            "tree occlusion: pose_occluded differs from the CPU twin")
+    require(int(flags.sum()) > 0, "tree occlusion: no pose flagged")
+    require(int((ref.total_cost[open_] >= 0).sum()) >= MIN_UNFLAGGED,
+            f"tree occlusion: fewer than {MIN_UNFLAGGED} unflagged poses "
+            "scored")
+    require(bool((out.total_cost.cpu()[flags.bool()] == -1).all()),
+            "tree occlusion: a flagged pose scored")
+    require(eq >= 0.98 and diffs.max().item() <= 2,
+            f"tree occlusion: totals equal on {eq:.3f}")
+    require((g_tot == ref.total_cost)[open_].float().mean().item() >= 0.98,
+            "tree occlusion: unflagged totals differ from the CPU twin")
+    require(all(launches.get(n, 0) > 0 for n in ("raster_direct",
+                                                  "cost_fused")),
+            f"tree occlusion launches {launches}")
+
+
+def within_bar(scene, e: dict, mode: str) -> bool:
+    """A detection's errors (TableScene.errors) within the mode's bar."""
+    if mode == "greedy_icp":
+        return e["dxy"] <= 0.03
+    res, theta = scene.env.env.res, scene.env.env.theta_res
+    return e["dx"] <= res and e["dy"] <= res and e["dyaw"] <= theta
+
+
+def table_errors(scene, names: list, poses: list, mode: str) -> list:
+    """Each ground-truth object must be detected, within the mode's bar."""
+    index = {m.name: i for i, m in enumerate(scene.models)}
+    ids = [index[n] for n in names]
+    require(sorted(ids) == list(range(len(scene.gt))),
+            f"{mode}: detected {names}")
+    errs = scene.errors(poses, ids)
+    bar = ICP_BAR if mode == "greedy_icp" else GRID_BAR
+    for e in errs:
+        require(within_bar(scene, e, mode),
+                f"{mode}: object {e['id']} outside the bar ({bar}): {e}")
+    return errs
+
+
+def report_table_defaults(dev) -> None:
+    """The table scene with each of table_scene.PERCH_SETTINGS and
+    ENV_SETTINGS left at its configuration default, then all of them: the
+    successors, then greedy ICP and the tree from Python. Their errors are
+    printed beside the bars and not required: the scene keeps those
+    settings because the defaults miss the bars at stride 24."""
+    names = (*table_scene.PERCH_SETTINGS, *table_scene.ENV_SETTINGS)
+    for left_out in [(n,) for n in names] + [names]:
+        scene = make_table_scene(dev, at_defaults=left_out)
+        env, rec = scene.env, scene.recognizer
+        env.set_input(scene.rin)
+        succ = env.generate_successors_3dof()
+        index = {m.name: i for i, m in enumerate(scene.models)}
+        for mode, run in (("greedy_icp", rec.localize_objects_greedy_icp),
+                          ("tree", rec.localize_objects)):
+            t0 = time.perf_counter()
+            result = run(scene.rin)
+            sync()
+            seconds = time.perf_counter() - t0
+            errs = scene.errors(result.poses,
+                                [index[n] for n in result.names])
+            emit({"phase": "table_defaults", "mode": mode,
+                  "at_defaults": list(left_out),
+                  "valid_per_model": [sum(1 for s in succ if s.id == i)
+                                      for i in range(len(scene.models))],
+                  "seconds": seconds, "detected": result.names,
+                  "errors": errs,
+                  "within_bar": [within_bar(scene, e, mode) for e in errs],
+                  "bar": ICP_BAR if mode == "greedy_icp" else GRID_BAR})
+
+
+def check_table_served(scene, dev, mode: str, requests: int) -> dict:
+    """POST /localize on the table scene's observation (no label mask, the
+    3-DoF region) in `mode`; returns the launches of the requests alone."""
+    rin = scene.rin
+    payload = {"depth_image": np.asarray(rin.depth_image).tolist(),
+               "depth_factor": rin.depth_factor,
+               "cam_to_world": np.asarray(rin.cam_to_world).tolist(),
+               "x_min": rin.x_min, "x_max": rin.x_max, "y_min": rin.y_min,
+               "y_max": rin.y_max, "table_height": rin.table_height,
+               "mode": mode}
+    body = json.dumps(payload).encode()
+    rec = scene.recognizer
+    server = serve(rec, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/localize"
+    latency, responses = [], []
+    try:
+        build.reset_counts()
+        for _ in range(requests):
+            gpu0 = rec.env.stats.gpu_time
+            t0 = time.perf_counter()
+            req = urllib.request.Request(
+                url, data=body, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                responses.append(json.loads(resp.read()))
+            score_ms = (rec.env.stats.gpu_time - gpu0) * 1e3
+            latency.append({
+                "request_ms": (time.perf_counter() - t0) * 1e3,
+                "localize_ms": rec.env.stats.time * 1e3,
+                "set_input_ms": rec.env.stats.input_time * 1e3,
+                "score_batches_ms": score_ms,
+                "score_ms_per_expansion": (
+                    score_ms / max(1, responses[-1]["stats"]["expands"]))})
+        launches = dict(build.LAUNCHES)
+        twins = dict(build.TWIN_CALLS)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    require(not thread.is_alive(), "server thread stopped")
+    errs = []
+    for out in responses:
+        dets = out["detections"]
+        errs.append(table_errors(
+            scene, [d["name"] for d in dets],
+            [ContPose.from_quat(*d["translation"], *d["quaternion_xyzw"])
+             for d in dets], mode))
+    stats = responses[-1]["stats"]
+    emit({"phase": "serve_table", "mode": mode, "requests": len(responses),
+          "payload_mb": len(body) / 1e6, "latency": latency,
+          "expands": stats["expands"],
+          "scenes_rendered": stats["scenes_rendered"],
+          "errors": errs,
+          "bar": ICP_BAR if mode == "greedy_icp" else GRID_BAR,
+          "launches": launches, "twin_calls": twins})
+    require(sum(twins.values()) == 0, f"{mode}: twins ran: {twins}")
+    return launches
+
+
+def check_mha_star(scene) -> dict:
+    """One MHAStarPlanner plan from Python: each model's 16 grid candidates
+    nearest its detection (a box around the ground truth's projected
+    centre), the anchor queue and the detection queue."""
+    env = scene.env
+    env.set_input(scene.rin)
+    cam = env.camera
+    dets = []
+    for g in scene.gt:
+        mat = env.pose_to_camera(g)
+        u = cam.fx * mat[0, 3] / mat[2, 3] + cam.cx
+        v = cam.fy * mat[1, 3] / mat[2, 3] + cam.cy
+        dets.append(Detection(name=scene.models[g.id].name,
+                              bbox=(u - 40, v - 40, u + 40, v + 40)))
+    factory = DetectionHeuristicFactory(dets, cam,
+                                        cam_to_world=scene.rin.cam_to_world)
+    h = factory.heuristic([m.name for m in scene.models])
+    cands = sorted(env.generate_successors_3dof(), key=h)
+    planner = MHAStarPlanner(env, cands, heuristics=[h], w1=10.0, w2=50.0,
+                             max_expansions=20, max_successors_per_model=16)
+    build.reset_counts()
+    t0 = time.perf_counter()
+    state = planner.plan()
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    objs = state.object_states
+    errs = table_errors(scene, [scene.models[o.id].name for o in objs],
+                        [o.pose for o in objs], "mha_star")
+    emit({"phase": "mha_star", "seconds": seconds,
+          "expands": planner.stats.expands,
+          "scenes_rendered": planner.stats.scenes_rendered,
+          "cost": planner.stats.cost, "errors": errs,
+          "bar": GRID_BAR, "launches": launches})
+    require(launches.get("raster_direct", 0) > 0
+            and launches.get("cost_fused", 0) > 0
+            and launches.get("icp_fused", 0) == 0,
+            f"mha_star launches {launches}")
+    return launches
+
+
+def check_table_cli(scene, mode: str, backend: str) -> dict:
+    """The table scene as files (the three models as PLY, the depth frame
+    as a 16-bit PNG in mm, a JSON config with the 3-DoF region) and
+    `localize --device cuda` in `mode`; returns the run's launches."""
+    env = scene.env
+    rin = scene.rin
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        meshes = bench_meshes(np.random.default_rng(0), "bumpy1024",
+                              table_scene.T_CAP)[1:]
+        for m, (_, v, f, colors) in zip(scene.models, meshes):
+            write_ply(root / f"{m.name}.ply", v, f, colors)
+        write_png(str(root / "depth.png"),
+                  np.asarray(rin.depth_image).astype(np.uint16))
+        config = {
+            "camera": dataclasses.asdict(env.camera),
+            "input": {"depth_image": "depth.png",
+                      "depth_factor": rin.depth_factor,
+                      "cam_to_world": np.asarray(rin.cam_to_world).tolist(),
+                      "x_min": rin.x_min, "x_max": rin.x_max,
+                      "y_min": rin.y_min, "y_max": rin.y_max,
+                      "table_height": rin.table_height},
+            "model_bank": [{"name": m.name, "path": f"{m.name}.ply"}
+                           for m in scene.models],
+            "mode": mode, "use_external_pose_list": 0,
+            "perch_params": dataclasses.asdict(env.perch),
+            "env_params": {**dataclasses.asdict(env.env),
+                           "kernel_backend": backend},
+        }
+        (root / "scene.json").write_text(json.dumps(config))
+        stdout = io.StringIO()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            rc = cli.main(["localize", "--config", str(root / "scene.json"),
+                           "--output", str(root / "out"), "--device", "cuda"])
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        twins = dict(build.TWIN_CALLS)
+        require(rc == 0, f"cli {mode}: exit code {rc}")
+        summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    poses = [ContPose.from_quat(*p) for p in summary["poses"]]
+    errs = table_errors(scene, summary["detected"], poses, mode)
+    emit({"phase": "cli_table", "mode": mode, "kernel_backend": backend,
+          "seconds": seconds, "expands": summary["expands"],
+          "scenes_rendered": summary["scenes_rendered"], "errors": errs,
+          "launches": launches, "twin_calls": twins})
+    require(sum(twins.values()) == 0, f"cli {mode}: twins ran: {twins}")
+    return launches
+
+
 def problem(dev, **kw):
     t0 = time.perf_counter()
     bp = build_bench_problem(n_poses=N_POSES, model_kind="bumpy1024",
@@ -1501,7 +1896,46 @@ def main() -> int:
         for name in RASTER_KERNELS[backend]:
             launches[name] = cli_launches[name]
 
-    # 7. Where a batch's time goes on the device, last: the profiler's CUPTI
+    # 7. The search modes on the 3-DoF table-top scene (640x480, stride 24,
+    # batches of 1100): the grid successors, each kernel of the greedy-ICP
+    # batch against its twin (the Lab colour cost on a use_color_cost
+    # variant), one tree expansion with tree occlusion against the CPU
+    # twins, the tree's batch through the bin raster against the twins,
+    # served greedy_icp and tree requests, an MHA* plan, the CLI in both
+    # modes (the tree through the bin raster), and the scene at the
+    # configuration defaults, reported without a bar.
+    table = make_table_scene(dev)
+    succ = check_successors(table)
+    check_kernels(TableBatch(table), DEPTH, TABLE_CASE)
+    check_kernels(TableBatch(make_table_scene(dev, use_color=True)),
+                  ("raster_direct", "icp_fused", "cost_fused_color"),
+                  TABLE_COLOR_CASE, only=("cost_fused_color",))
+    # The tree's own scoring batch through the bin raster, as the tree CLI
+    # run below scores its expansions.
+    check_kernels(TableBatch(make_table_scene(
+        dev, env_overrides={"kernel_backend": "pallas_bin"}), do_icp=False),
+        ("raster_bin", "cost_fused"), TABLE_BIN_CASE)
+    check_tree_occlusion(table, succ)
+    icp_served = check_table_served(table, dev, "greedy_icp", 2)
+    require(all(icp_served.get(n, 0) > 0 for n in DEPTH),
+            f"served greedy_icp launches {icp_served}")
+    tree_served = check_table_served(table, dev, "tree", 1)
+    require(tree_served.get("raster_direct", 0) > 0
+            and tree_served.get("cost_fused", 0) > 0
+            and tree_served.get("icp_fused", 0) == 0,
+            f"served tree launches {tree_served}")
+    check_mha_star(table)
+    cli_icp = check_table_cli(table, "greedy_icp", "auto")
+    require(all(cli_icp.get(n, 0) > 0 for n in DEPTH),
+            f"cli greedy_icp launches {cli_icp}")
+    cli_tree = check_table_cli(table, "tree", "pallas_bin")
+    require(cli_tree.get("raster_bin", 0) > 0
+            and cli_tree.get("cost_fused", 0) > 0
+            and cli_tree.get("icp_fused", 0) == 0,
+            f"cli tree launches {cli_tree}")
+    report_table_defaults(dev)
+
+    # 8. Where a batch's time goes on the device, last: the profiler's CUPTI
     # session is the one process-wide state no other phase changes.
     profile_batch(depth, "depth ROI batch")
     profile_batch(noisy, "noisy batch")
@@ -1519,8 +1953,8 @@ def main() -> int:
                "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
         if mode:
             out["mode"] = mode
-        if "bound_valid_ms" in res:
-            out.update(bound_valid_ms=res["bound_valid_ms"],
+        if "bound_dense_ms" in res:
+            out.update(bound_dense_ms=res["bound_dense_ms"],
                        valid_pair_share=res["valid_pair_share"])
         return out
 

@@ -16,6 +16,8 @@ unless absolute):
       depth_factor: 10000             # sensor units per metre
       cam_to_world: [[...4x4...]]     # optional, default identity
       segmented_object_names: [...]
+      x_min, x_max, y_min, y_max      # 3-DoF search region (m, world)
+      table_height                    # 3-DoF support surface (m)
     model_bank:
       - {name: 003_cracker_box, path: models/003/textured.ply,
          flipped: false, symmetric: false, symmetry_mode: 1}
@@ -24,13 +26,18 @@ unless absolute):
     rendered_root_dir: poses_dir      # <obj>/poses.txt candidate files
     perch_params: {...}               # PerchConfig keys
     env_params: {...}                 # EnvConfig keys, kernel_backend too
-    mode: greedy
+    mode: greedy | tree | greedy_icp
 
 A `.json` config is read with `json`; a `.yaml` / `.yml` one with `yaml`
-where that module is installed. Images are PNG (`io.images`). Only `mode:
-greedy` is ported; "tree" and "greedy_icp" raise NotImplementedError. The
-scene runs on the card unless `--device cpu`. The run writes
-`output_poses.txt`, `output_stats.txt` and `cost_dump.json` into the output
+where that module is installed. Images are PNG (`io.images`). "greedy"
+localises the candidates of `rendered_root_dir` (6-DoF, with the instance
+mask); "tree" (the tree search) and "greedy_icp" (the brute-force ICP
+baseline) search the 3-DoF grid over the input's region. As in the JAX CLI,
+"greedy_icp" loads the models for 3-DoF (base at z = 0) and the other modes
+follow `use_external_pose_list` (default 1), and the input is 3-DoF when
+`use_external_pose_list` is 0 or the mode is "greedy_icp". The scene runs on
+the card unless `--device cpu`. The run writes `output_poses.txt`,
+`output_stats.txt` and (greedy, greedy_icp) `cost_dump.json` into the output
 directory and prints one JSON summary line, as the JAX CLI does.
 """
 
@@ -80,10 +87,7 @@ def cmd_localize(args: argparse.Namespace) -> int:
     cfg = load_config(args.config)
     base = os.path.dirname(os.path.abspath(args.config))
     mode = cfg.get("mode", "greedy")
-    if mode in ("tree", "greedy_icp"):
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported to PyTorch yet (greedy only)")
-    if mode != "greedy":
+    if mode not in ("greedy", "tree", "greedy_icp"):
         print(f"unknown mode {mode}", file=sys.stderr)
         return 2
 
@@ -98,7 +102,8 @@ def cmd_localize(args: argparse.Namespace) -> int:
         symmetric=m.get("symmetric", False),
         symmetry_mode=m.get("symmetry_mode", 0))
         for m in cfg["model_bank"]]
-    use_external = bool(cfg.get("use_external_pose_list", 1))
+    use_external = (mode != "greedy_icp"
+                    and bool(cfg.get("use_external_pose_list", 1)))
 
     t0 = time.perf_counter()
     recognizer = ObjectRecognizer(
@@ -147,17 +152,27 @@ def cmd_localize(args: argparse.Namespace) -> int:
         depth_factor=float(inp.get("depth_factor", 100.0)),
         cam_to_world=cam_to_world,
         segmented_object_names=seg_names,
+        x_min=inp.get("x_min", -1.0), x_max=inp.get("x_max", 1.0),
+        y_min=inp.get("y_min", -1.0), y_max=inp.get("y_max", 1.0),
+        table_height=inp.get("table_height", 0.0),
         use_external_pose_list=use_external)
-    pose_lists = recognizer.read_pose_lists(
-        _resolve(base, cfg["rendered_root_dir"]))
-    result = recognizer.localize_objects_greedy_render(
-        rin, pose_lists, output_dir=args.output)
+    if mode == "greedy":
+        pose_lists = recognizer.read_pose_lists(
+            _resolve(base, cfg["rendered_root_dir"]))
+        result = recognizer.localize_objects_greedy_render(
+            rin, pose_lists, output_dir=args.output)
+    elif mode == "greedy_icp":
+        result = recognizer.localize_objects_greedy_icp(
+            rin, output_dir=args.output)
+    else:
+        result = recognizer.localize_objects(rin, output_dir=args.output)
 
     stats = recognizer.env.stats
     print(json.dumps({
         "detected": result.names,
         "poses": [[p.x, p.y, p.z, *p.quaternion()] for p in result.poses],
         "scenes_rendered": stats.scenes_rendered,
+        "expands": stats.expands,
         "time": round(stats.time, 3),
         "output_dir": args.output,
     }))

@@ -15,6 +15,10 @@ import numpy as np
 import torch
 
 from perception_tpu_torch.core.mesh import MeshModel, ModelBank
+from perception_tpu_torch.core.pose import ContPose
+from perception_tpu_torch.core.state import Discretizer, ObjectState
+from perception_tpu_torch.pipeline.env import RecognitionInput
+from perception_tpu_torch.pipeline.heuristics import Detection
 from perception_tpu_torch.pipeline.scorer import ObservedScene, ScorerConfig
 
 
@@ -79,3 +83,25 @@ def scorer_config_from_jax(cfg) -> ScorerConfig:
     backend = {"pallas": "pallas", "pallas_bin": "pallas_bin",
                "pallas_bin_interpret": "pallas_bin"}.get(cfg.backend, "auto")
     return dataclass_from_jax(cfg, ScorerConfig, backend=backend)
+
+
+def discretizer_from_jax(disc) -> Discretizer:
+    """A JAX Discretizer -> the port's (the same grid)."""
+    return dataclass_from_jax(disc, Discretizer)
+
+
+def states_from_jax(states) -> list[ObjectState]:
+    """JAX ObjectStates -> the port's, poses field by field."""
+    return [dataclass_from_jax(s, ObjectState,
+                               pose=dataclass_from_jax(s.pose, ContPose))
+            for s in states]
+
+
+def input_from_jax(rin) -> RecognitionInput:
+    """A JAX RecognitionInput -> the port's (the 3-DoF region included)."""
+    return dataclass_from_jax(rin, RecognitionInput)
+
+
+def detections_from_jax(detections) -> list[Detection]:
+    """JAX Detections -> the port's."""
+    return [dataclass_from_jax(d, Detection) for d in detections]

@@ -4,14 +4,17 @@ The port's own copy of the host-side parts of `perception_tpu/core/mesh.py`
 that the greedy path needs: `read_mesh`, `preprocess_model`, QEM
 decimation, `MeshModel`, `ModelBank` (morton-ordered, padded triangle
 arrays; the render-LOD re-decimation; surface samples),
-`mesh_model_from_arrays` and `load_model`. The same inputs give the same
-arrays as the JAX package: parsing and QEM run in the same C++
-implementation (`csrc/mesh_loader.cpp`, built by `core/native.py`), and the
-bank's triangle cap is the port's raster constant `MAX_TRIS`.
+`mesh_model_from_arrays` and `load_model`; and the 3-DoF footprint and
+containment helpers of the search modes (`convex_hull_2d`,
+`points_in_convex_poly`, `MeshModel.circumscribed_radius`,
+`footprint_hull`, `points_inside`, `points_inside_footprint`), host NumPy as
+in the JAX package. The same inputs give the same arrays as the JAX package:
+parsing and QEM run in the same C++ implementation (`csrc/mesh_loader.cpp`,
+built by `core/native.py`), and the bank's triangle cap is the port's raster
+constant `MAX_TRIS`.
 
-Not copied yet: the 3-DoF footprint helpers (`convex_hull_2d`,
-`points_in_convex_poly`, `MeshModel.footprint_hull` / `points_inside*`) and
-the ADD/ADD-S sampler; they belong to the 3-DoF and evaluation slices.
+Not copied yet: the ADD/ADD-S sampler (`sample_surface_points`); it belongs
+to the evaluation slice.
 """
 
 from __future__ import annotations
@@ -69,6 +72,39 @@ def decimate(verts, faces, colors, target_triangles: int):
     return native.decimate_qem(verts, faces, colors, target_triangles)
 
 
+def convex_hull_2d(points: np.ndarray) -> np.ndarray:
+    """Monotone-chain convex hull of 2D points, CCW, no repeated endpoint."""
+    pts = np.unique(points[:, :2], axis=0)
+    if len(pts) <= 2:
+        return pts
+    pts = pts[np.lexsort((pts[:, 1], pts[:, 0]))]
+
+    def half(seq):
+        hull: list[np.ndarray] = []
+        for p in seq:
+            while len(hull) >= 2:
+                a, b = hull[-1] - hull[-2], p - hull[-2]
+                if a[0] * b[1] - a[1] * b[0] > 0:
+                    break
+                hull.pop()
+            hull.append(p)
+        return hull
+
+    lower = half(pts)
+    upper = half(pts[::-1])
+    return np.asarray(lower[:-1] + upper[:-1])
+
+
+def points_in_convex_poly(points: np.ndarray, hull: np.ndarray) -> np.ndarray:
+    """Point-in-convex-polygon mask (CCW hull), on or left of every edge."""
+    if len(hull) < 3:
+        return np.zeros(len(points), dtype=bool)
+    edge = np.roll(hull, -1, axis=0) - hull                 # [E, 2]
+    rel = points[:, None, :2] - hull[None, :, :]            # [P, E, 2]
+    cross = edge[None, :, 0] * rel[:, :, 1] - edge[None, :, 1] * rel[:, :, 0]
+    return (cross >= -1e-12).all(axis=1)
+
+
 @dataclasses.dataclass
 class MeshModel:
     """One preprocessed object model as a flat triangle soup (metres)."""
@@ -100,6 +136,12 @@ class MeshModel:
         return float(min(vmax[0] - vmin[0], vmax[1] - vmin[1]) / 2.0)
 
     @property
+    def circumscribed_radius(self) -> float:
+        """Half the larger side of the (x, y) bounding box."""
+        vmin, vmax = self.bounds
+        return float(max(vmax[0] - vmin[0], vmax[1] - vmin[1]) / 2.0)
+
+    @property
     def circumscribed_radius_3d(self) -> float:
         vmin, vmax = self.bounds
         return float(max(vmax - vmin) / 2.0)
@@ -110,6 +152,55 @@ class MeshModel:
         if r < 1e-5:
             return 1.0
         return 1.0 + MESH_ADDITIVE_INFLATION / r
+
+    def footprint_hull(self) -> np.ndarray:
+        """Convex hull [E, 2] of the model's (x, y) vertices, CCW."""
+        return convex_hull_2d(self.tri_verts.reshape(-1, 3)[:, :2])
+
+    def points_inside(self, points: np.ndarray,
+                      transform: np.ndarray | None = None,
+                      inflation: float = 1.0) -> np.ndarray:
+        """Mask of points [P, 3] enclosed by the mesh surface: the parity of
+        +z ray crossings through the (optionally [4, 4]-transformed,
+        inflation-scaled) triangle soup, the reference's PointsInsideMesh.
+        Exact for closed meshes. Points are nudged by a sub-micron constant
+        so that no ray passes through a shared edge."""
+        tv = self.tri_verts.astype(np.float64) * inflation     # [T, 3, 3]
+        if transform is not None:
+            tv = tv @ np.asarray(transform)[:3, :3].T + transform[:3, 3]
+        p = np.asarray(points, np.float64).copy()
+        p[:, 0] += 1.172e-7
+        p[:, 1] += 2.387e-7
+        a, b, c = tv[:, 0], tv[:, 1], tv[:, 2]
+        # (x, y) barycentric containment, broadcast [P, T].
+        d = ((b[:, 1] - c[:, 1]) * (a[:, 0] - c[:, 0])
+             + (c[:, 0] - b[:, 0]) * (a[:, 1] - c[:, 1]))
+        safe = np.where(np.abs(d) > 1e-15, d, 1.0)
+        px = p[:, 0:1] - c[None, :, 0]
+        py = p[:, 1:2] - c[None, :, 1]
+        l1 = ((b[:, 1] - c[:, 1]) * px + (c[:, 0] - b[:, 0]) * py) / safe
+        l2 = ((c[:, 1] - a[:, 1]) * px + (a[:, 0] - c[:, 0]) * py) / safe
+        l3 = 1.0 - l1 - l2
+        hit = (np.abs(d) > 1e-15) & (l1 >= 0) & (l2 >= 0) & (l3 >= 0)
+        z_int = l1 * a[:, 2] + l2 * b[:, 2] + l3 * c[:, 2]
+        crossings = (hit & (z_int > p[:, 2:3])).sum(axis=1)
+        return (crossings % 2).astype(bool)
+
+    def points_inside_footprint(self, points_xy: np.ndarray,
+                                yaw_cos_sin: tuple[float, float] = (1.0, 0.0),
+                                xy: tuple[float, float] = (0.0, 0.0),
+                                ) -> np.ndarray:
+        """Mask of 2D points inside the footprint hull rotated by the yaw
+        (cos, sin) and moved to xy (the reference's PointsInsideFootprint);
+        either winding of the hull is accepted."""
+        cy, sy = yaw_cos_sin
+        rot = np.array([[cy, -sy], [sy, cy]])
+        hull = self.footprint_hull() @ rot.T + np.asarray(xy)
+        p = np.asarray(points_xy, np.float64)
+        edge = np.roll(hull, -1, axis=0) - hull              # [E, 2]
+        rel = p[:, None, :] - hull[None, :, :]               # [P, E, 2]
+        cross = edge[:, 0] * rel[..., 1] - edge[:, 1] * rel[..., 0]
+        return (cross >= -1e-12).all(axis=1) | (cross <= 1e-12).all(axis=1)
 
 
 def analyze_winding(verts: np.ndarray, faces: np.ndarray

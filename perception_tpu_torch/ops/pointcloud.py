@@ -153,12 +153,15 @@ def observed_cloud_from_depth(
     in interleaved (coprime-stride) order so any static prefix of a segment
     is a spatially uniform subsample."""
     dev = depth.device
-    d = depth[::stride, ::stride].to(torch.float32)
-    rgb = color[::stride, ::stride].to(torch.float32)
-    lab = label_mask[::stride, ::stride].to(torch.int32)
+    # The render's strided grid: (height // stride) x (width // stride)
+    # pixels, also where the stride does not divide the frame.
+    grid = np.s_[:height // stride * stride:stride,
+                 :width // stride * stride:stride]
+    d = depth[grid].to(torch.float32)
+    rgb = color[grid].to(torch.float32)
+    lab = label_mask[grid].to(torch.int32)
     npix = d.shape[0] * d.shape[1]
     px, py = _strided_pixel_coords(width, height, stride, dev)
-    px, py = px[:npix], py[:npix]
     d = d.reshape(npix)
     rgb = rgb.reshape(npix, 3)
     lab = lab.reshape(npix)

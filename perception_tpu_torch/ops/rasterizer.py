@@ -9,7 +9,9 @@ CPU), or the scatter-bin kernel (`ops/raster_bin.py`;
 "pallas_bin"). The packed keys become depth (int cm), winning triangle id
 and face colour; then the occlusion pass against the observed source images
 removes render pixels hidden behind closer source geometry of another
-segment, and counts `clutter_ratio`.
+segment, and counts `clutter_ratio`; with `use_tree_occlusion` (the tree
+search's composed sources) a render in front of the source at a mismatching
+pixel sets `pose_occluded`.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def check_backend(backend: str) -> None:
 class RenderOutput:
     depth: torch.Tensor          # [N, h, w] int32 cm, 0 = empty
     color: torch.Tensor          # [N, h, w, 3] float32 0..255
-    pose_occluded: torch.Tensor  # [N] int32 (always 0: no tree occlusion)
+    pose_occluded: torch.Tensor  # [N] int32 (tree occlusion only)
     tri_id: torch.Tensor         # [N, h, w] int32 winning triangle, -1 empty
     anchors: torch.Tensor        # [N, 2] int32 strided ROI origin (x0, y0)
     clutter_ratio: torch.Tensor  # [N] float32 % of rendered pixels occluded
@@ -215,10 +217,6 @@ def render_pose_batch(
     occlusion pass. With roi_shape each pose renders a window centred on
     its projected model centre; `anchors` gives each window's origin."""
     check_backend(backend)
-    if use_tree_occlusion:
-        raise NotImplementedError(
-            "use_tree_occlusion (render-occludes-source invalidation) is not "
-            "ported; the greedy path runs with it off")
     from perception_tpu_torch.ops import raster_bin, raster_direct, raster_keys
 
     n = pose_mats.shape[0]
@@ -285,6 +283,11 @@ def render_pose_batch(
             mismatch = diff > occlusion_threshold
         present = ~empty
         removed = present & mismatch & (depth > src) & (src > 0)
+        if use_tree_occlusion:
+            # The tree search's composed source: a render in front of the
+            # source at a mismatching pixel flags the whole pose.
+            occluding = present & mismatch & (depth <= src) & (src > 0)
+            pose_occluded = occluding.any(dim=1).to(torch.int32)
         # Clutter: rendered pixels hidden behind clearly closer (>= 5 cm)
         # source geometry.
         clutter = removed & (src <= depth - 5)

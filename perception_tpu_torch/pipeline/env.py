@@ -1,14 +1,19 @@
 """Recognition environment: observed-input processing and candidate scoring.
 
-Counterpart of `perception_tpu/pipeline/env.py` for the greedy 6-DoF path:
-`set_input` builds the observed scene (label-partitioned cloud and its Lab
-colours, segment normals, strided source images) on the env's device and the
-world-frame KD-trees for validity pruning on the host; `score_object_states`
-runs `score_pose_batch` in `gpu_batch_size` chunks, with the CIEDE2000 colour
-gate (cost type 3) when `PerchConfig.use_color_cost` is set;
+Counterpart of `perception_tpu/pipeline/env.py`: `set_input` builds the
+observed scene (label-partitioned cloud and its Lab colours, segment normals,
+strided source images) on the env's device and the world-frame points and
+KD-trees for validity pruning on the host. A 6-DoF input carries an instance
+mask and external candidate poses; a 3-DoF (table-top) input carries none:
+every observed point inside the search region (`x_min` .. `y_max` above
+`table_height`) is one segment, and candidates are an (x, y, yaw) grid
+(`generate_successors_3dof`). `score_object_states` runs `score_pose_batch`
+in `gpu_batch_size` chunks, cost type 2 / 3 in 6-DoF mode and 0 / 1 in 3-DoF
+mode (the CIEDE2000 colour gate when `PerchConfig.use_color_cost` is set);
 `compute_greedy_poses` takes the per-(model, segment) argmin with the
-|target - source| < 30 filter. The env runs on the card unless given
-`device="cpu"`.
+|target - source| < 30 filter, or, with `collision_ordering`, the commit
+order of the reference's greedy-ICP baseline. The env runs on the card
+unless given `device="cpu"`.
 
 `EnvConfig.kernel_backend` picks the scoring raster ("auto" and
 "pallas_direct": the direct kernel; "pallas": the coefficient-table kernel;
@@ -16,13 +21,14 @@ gate (cost type 3) when `PerchConfig.use_color_cost` is set;
 `render_composite` always takes the direct kernel, as the JAX env takes its
 default backend there.
 
-Not ported yet (they raise): 3-DoF input and successors, `fine_stride`,
-`pose_refinement_rounds`, the "xla" backend, and the debug-image dumps.
+Not ported yet (they raise): `fine_stride`, `pose_refinement_rounds`, the
+"xla" backend, and the debug-image dumps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Sequence
 
@@ -37,13 +43,23 @@ from perception_tpu_torch.core.config import (
 )
 from perception_tpu_torch.core.mesh import ModelBank
 from perception_tpu_torch.core.pose import CAM_TO_BODY, ContPose
-from perception_tpu_torch.core.state import GraphState, ObjectState
+from perception_tpu_torch.core.state import (
+    Discretizer,
+    GraphState,
+    ObjectState,
+)
 from perception_tpu_torch.eval.sensor_model import SensorModel
 from perception_tpu_torch.ops.color import rgb_to_lab
-from perception_tpu_torch.ops.cost import COST_TYPE_6DOF, COST_TYPE_6DOF_RGB
+from perception_tpu_torch.ops.cost import (
+    COST_TYPE_3DOF_DEPTH,
+    COST_TYPE_3DOF_RGBD,
+    COST_TYPE_6DOF,
+    COST_TYPE_6DOF_RGB,
+)
 from perception_tpu_torch.ops.icp import cloud_normals
 from perception_tpu_torch.ops.pointcloud import observed_cloud_from_depth
 from perception_tpu_torch.ops.rasterizer import check_backend, render_pose_batch
+from perception_tpu_torch.pipeline.pruning import prune_successors
 from perception_tpu_torch.pipeline.scorer import (
     ObservedScene,
     ScorerConfig,
@@ -54,7 +70,7 @@ from perception_tpu_torch.utils.stats import EnvStats
 
 @dataclasses.dataclass
 class RecognitionInput:
-    """Observed scene input (the JAX RecognitionInput's 6-DoF fields)."""
+    """Observed scene input (the JAX RecognitionInput)."""
 
     depth_image: np.ndarray                 # [H, W] raw sensor units
     color_image: np.ndarray | None = None   # [H, W, 3]
@@ -63,7 +79,13 @@ class RecognitionInput:
     cam_to_world: np.ndarray = dataclasses.field(
         default_factory=lambda: CAM_TO_BODY.copy())
     segmented_object_names: list[str] = dataclasses.field(default_factory=list)
-    use_external_pose_list: bool = True     # 6-DoF mode (3-DoF: not ported)
+    # 3-DoF support-surface search region (world frame).
+    x_min: float = -1.0
+    x_max: float = 1.0
+    y_min: float = -1.0
+    y_max: float = 1.0
+    table_height: float = 0.0
+    use_external_pose_list: bool = True     # 6-DoF mode
 
 
 @dataclasses.dataclass
@@ -103,6 +125,10 @@ class PerceptionEnv:
             raise RuntimeError("no CUDA device: the env runs on the card "
                                "unless given device='cpu'")
         self.stats = EnvStats()
+        # Graph-state identity for the search's deduplication; the bounds
+        # follow each input's search region (set_input).
+        self._disc = Discretizer(res=self.env.res,
+                                 theta_res=self.env.theta_res)
         self._input: RecognitionInput | None = None
         self._scene: ObservedScene | None = None
         self._observed = None
@@ -113,6 +139,17 @@ class PerceptionEnv:
         self._bank_tri_verts = dev(bank.tri_verts, torch.float32)
         self._bank_tri_colors = dev(bank.tri_colors, torch.float32)
         self._bank_tri_valid = dev(bank.tri_valid, torch.bool)
+        self._bank_backface = dev(bank.backface_cull, torch.bool)
+        # Per-model 3-DoF geometry for the batched validity tests and
+        # cylinder totals: footprint hull, radii, inflated cylinder radius.
+        self._footprints = [m.footprint_hull() for m in bank.models]
+        self._circ_radius = np.array([m.circumscribed_radius
+                                      for m in bank.models])
+        self._insc_radius = np.array([m.inscribed_radius
+                                      for m in bank.models])
+        self._cyl_radius = np.array([m.inflation_factor
+                                     * m.circumscribed_radius
+                                     for m in bank.models])
         samp, snrm = bank.surface_samples(self.env.icp_model_samples)
         self._bank_icp_samples = dev(samp, torch.float32)
         self._bank_icp_normals = dev(snrm, torch.float32)
@@ -142,38 +179,63 @@ class PerceptionEnv:
         if (h, w) != (cam.height, cam.width):
             raise ValueError(f"depth image {w}x{h} != camera "
                              f"{cam.width}x{cam.height}")
-        if not rin.use_external_pose_list:
-            raise _unported("3-DoF input (use_external_pose_list=False)")
-        if rin.label_mask is None:
-            raise ValueError("6-DoF mode needs an instance mask")
+        six_dof = bool(rin.use_external_pose_list)
+        if six_dof:
+            if rin.label_mask is None:
+                raise ValueError("6-DoF mode needs an instance mask")
+            label = rin.label_mask
+            bounds = None
+        else:
+            # 3-DoF: one scene-wide segment, cut to the search region.
+            label = np.ones((h, w), np.int32)
+            bounds = self._tensor([
+                rin.x_max, rin.x_min, rin.y_max, rin.y_min,
+                rin.table_height + 2.0, rin.table_height - 0.01],
+                torch.float32)
         color = (rin.color_image if rin.color_image is not None
                  else np.zeros((h, w, 3), np.float32))
         dev = self._tensor
         observed = observed_cloud_from_depth(
             dev(rin.depth_image, torch.float32), dev(color, torch.float32),
-            dev(rin.label_mask, torch.int32),
+            dev(label, torch.int32),
             fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
             width=cam.width, height=cam.height, stride=stride,
             depth_factor=float(rin.depth_factor),
             max_points=env.max_observed_points,
             seg_cap=env.max_points_per_label,
-            num_labels=env.max_labels)
+            num_labels=env.max_labels,
+            use_label_filter=six_dof, use_bounds_filter=not six_dof,
+            bounds=bounds,
+            cam_to_world=dev(rin.cam_to_world.astype(np.float32)))
         seg_normals = cloud_normals(observed.seg_xyz, observed.seg_valid, k=10)
         # Strided source images in render units (int cm) for the occlusion
-        # pass.
+        # pass, on the render's grid.
         division = float(rin.depth_factor) / env.gpu_depth_factor
-        src = rin.depth_image[::stride, ::stride].astype(np.float64) / division
+        src = (self.strided(rin.depth_image, stride).astype(np.float64)
+               / division)
         scene = ObservedScene(
             seg_xyz=observed.seg_xyz, seg_rgb=observed.seg_rgb,
             seg_lab=rgb_to_lab(observed.seg_rgb),
             seg_valid=observed.seg_valid, seg_normals=seg_normals,
             source_depth=dev(src.astype(np.int32), torch.int32),
-            source_label=dev(rin.label_mask[::stride, ::stride], torch.int32))
+            source_label=dev(self.strided(label, stride), torch.int32))
         return scene, observed
+
+    def strided(self, img, stride: int | None = None):
+        """img [..., H, W] sampled on the render's strided grid: every
+        `stride`-th pixel (default gpu_stride) of the first (H // stride)
+        rows and (W // stride) columns, also where the stride does not
+        divide the frame (the observed cloud samples the same grid)."""
+        s = int(stride or self.perch.gpu_stride)
+        rows, cols = self.camera.height // s, self.camera.width // s
+        return img[..., :rows * s:s, :cols * s:s]
 
     def set_input(self, rin: RecognitionInput) -> None:
         t0 = time.perf_counter()
         self._input = rin
+        self._disc = Discretizer(
+            x_min=rin.x_min, x_max=rin.x_max, y_min=rin.y_min,
+            y_max=rin.y_max, res=self.env.res, theta_res=self.env.theta_res)
         self._scene, self._observed = self._build_scene(
             rin, int(self.perch.gpu_stride))
         # Host-side world-frame KD-trees for validity checks.
@@ -250,12 +312,37 @@ class PerceptionEnv:
                 self.bank.models[model_id].preprocessing_transform)
         return ContPose.from_matrix(m)
 
-    def is_valid_pose(self, state: ObjectState) -> bool:
-        """6-DoF validity: enough observed points of the pose's segment
-        within the model's inflated radius."""
+
+    # ------------------------------------------------------------------
+    # Validity pruning (the reference's IsValidPose)
+    # ------------------------------------------------------------------
+
+    def is_valid_pose(self, state: ObjectState,
+                      placed: GraphState | None = None,
+                      after_refinement: bool = False) -> bool:
+        """6-DoF: enough observed points of the pose's segment within the
+        model's inflated radius. 3-DoF: enough observed points within the
+        circumscribed radius in the (x, y) plane, no inscribed-circle
+        collision with the objects of `placed`, and the footprint inside the
+        search region (+- footprint_tolerance). after_refinement drops the
+        grid cell's half diagonal from the radius."""
+        return bool(self.valid_poses([state], placed, after_refinement)[0])
+
+    def valid_poses(self, states: Sequence[ObjectState],
+                    placed: GraphState | None = None,
+                    after_refinement: bool = False) -> np.ndarray:
+        """is_valid_pose of every state, as a bool array; the 3-DoF tests run
+        batched over the states."""
+        grid_rad = (0.0 if after_refinement
+                    else float(np.hypot(self.env.res / 2, self.env.res / 2)))
+        if self._input is not None and self._input.use_external_pose_list:
+            return np.asarray([self._valid_6dof(s, grid_rad) for s in states],
+                              dtype=bool)
+        return self._valid_3dof(states, placed, grid_rad)
+
+    def _valid_6dof(self, state: ObjectState, grid_rad: float) -> bool:
         model = self.bank.models[state.id]
         p = np.array([state.pose.x, state.pose.y, state.pose.z])
-        grid_rad = float(np.hypot(self.env.res / 2, self.env.res / 2))
         rad = max(model.inflation_factor * model.circumscribed_radius_3d,
                   grid_rad)
         tree = None
@@ -268,12 +355,68 @@ class PerceptionEnv:
         count = len(tree.query_ball_point(p, rad))
         return count >= self.perch.min_neighbor_points_for_valid_pose
 
+    def _projected_counts(self, xy: np.ndarray, rad: np.ndarray) -> np.ndarray:
+        """Observed world points within rad[i] of xy[i] in the (x, y) plane
+        (float64 d^2 <= rad^2), for every i, in chunks of [C, P]."""
+        pts = self._world_points[:, :2]
+        out = np.zeros(len(xy), np.int64)
+        step = max(1, (1 << 22) // max(len(pts), 1))
+        for lo in range(0, len(xy), step):
+            d2 = ((pts[None] - xy[lo:lo + step, None]) ** 2).sum(axis=2)
+            r = rad[lo:lo + step]
+            out[lo:lo + step] = (d2 <= (r * r)[:, None]).sum(axis=1)
+        return out
+
+    def _valid_3dof(self, states: Sequence[ObjectState],
+                    placed: GraphState | None, grid_rad: float) -> np.ndarray:
+        ok = np.zeros(len(states), bool)
+        if self._world_kdtree is None or not states:
+            return ok
+        ids = np.array([s.id for s in states])
+        xy = np.array([[s.pose.x, s.pose.y] for s in states], np.float64)
+        rad = np.maximum(self._circ_radius[ids], grid_rad)
+        ok = (self._projected_counts(xy, rad)
+              >= self.perch.min_neighbor_points_for_valid_pose)
+        if placed is not None:
+            r1 = self._insc_radius[ids]
+            for other in placed.object_states:
+                r2 = self._insc_radius[other.id]
+                dx = xy[:, 0] - other.pose.x
+                dy = xy[:, 1] - other.pose.y
+                ok &= ~(dx * dx + dy * dy < (r1 + r2) ** 2)
+        # The posed footprint hull inside the region: the hull is rotated
+        # once per (model, rotation), then shifted to every state with it.
+        tol = self.perch.footprint_tolerance
+        rin = self._input
+        groups: dict[tuple, list[int]] = {}
+        for i, s in enumerate(states):
+            p = s.pose
+            groups.setdefault((s.id, p.qx, p.qy, p.qz, p.qw, p.roll, p.pitch,
+                               p.yaw), []).append(i)
+        for idx in groups.values():
+            s = states[idx[0]]
+            base = self._footprints[s.id] @ s.pose.rotation()[:2, :2].T
+            fp = base[None] + xy[idx][:, None, :]           # [g, E, 2]
+            out = ((fp[..., 0] < rin.x_min - tol).any(axis=1)
+                   | (fp[..., 0] > rin.x_max + tol).any(axis=1)
+                   | (fp[..., 1] < rin.y_min - tol).any(axis=1)
+                   | (fp[..., 1] > rin.y_max + tol).any(axis=1))
+            ok[idx] &= ~out
+        return ok
+
     # ------------------------------------------------------------------
     # Scoring
     # ------------------------------------------------------------------
 
     def _scorer_config(self, do_icp: bool | None = None) -> ScorerConfig:
         cam, perch, env = self.camera, self.perch, self.env
+        six_dof = self._input.use_external_pose_list
+        if six_dof:
+            cost_type = (COST_TYPE_6DOF_RGB if perch.use_color_cost
+                         else COST_TYPE_6DOF)
+        else:
+            cost_type = (COST_TYPE_3DOF_RGBD if perch.use_color_cost
+                         else COST_TYPE_3DOF_DEPTH)
         if do_icp is None:
             do_icp = perch.icp_type == 3
         stride = int(perch.gpu_stride)
@@ -286,12 +429,11 @@ class PerceptionEnv:
             width=cam.width, height=cam.height, stride=stride,
             fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
             max_points_per_pose=env.max_points_per_pose,
-            cost_type=(COST_TYPE_6DOF_RGB if perch.use_color_cost
-                       else COST_TYPE_6DOF),
+            cost_type=cost_type,
             sensor_resolution=perch.sensor_resolution,
             color_distance_threshold=perch.color_distance_threshold,
             occlusion_threshold=perch.gpu_occlusion_threshold,
-            use_segmentation_label=True,
+            use_segmentation_label=six_dof,
             use_tree_occlusion=perch.use_tree_occlusion,
             do_icp=do_icp,
             icp_mode=icp_mode,
@@ -320,6 +462,21 @@ class PerceptionEnv:
             clutter_regularizer=perch.clutter_regularizer,
         )
 
+    def _observed_totals(self, chunk: Sequence[ObjectState],
+                         labels: np.ndarray) -> np.ndarray:
+        """[N] float32 observed points each pose is scored against: its
+        segment's count (6-DoF); in 3-DoF mode the points inside the pose's
+        inflated circumscribing cylinder (use_cylinder_observed) or all."""
+        if self._input.use_external_pose_list:
+            seg_count = self._observed.seg_count.cpu().numpy()
+            return seg_count.astype(np.float32)[labels]
+        if self.perch.use_cylinder_observed:
+            rad = self._cyl_radius[[s.id for s in chunk]]
+            xy = np.array([[s.pose.x, s.pose.y] for s in chunk], np.float64)
+            return self._projected_counts(xy, rad).astype(np.float32)
+        total = float(self._observed.count.item())
+        return np.full(len(chunk), total, np.float32)
+
     def score_object_states(self, states: Sequence[ObjectState],
                             do_icp: bool | None = None) -> list[ScoredState]:
         """Score single-object placements in gpu_batch_size chunks (the last
@@ -327,7 +484,6 @@ class PerceptionEnv:
         if self._scene is None:
             raise RuntimeError("call set_input first")
         cfg = self._scorer_config(do_icp)
-        seg_count = self._observed.seg_count.cpu().numpy().astype(np.float32)
         results: list[ScoredState] = []
         batch = int(self.perch.gpu_batch_size)
         rb_verts, rb_colors, rb_valid, rb_backface = self._render_bank
@@ -340,12 +496,13 @@ class PerceptionEnv:
             ids = np.asarray([s.id for s in chunk], np.int64)
             labels = np.asarray(
                 [max(s.segmentation_label_id - 1, 0) for s in chunk], np.int64)
+            totals = self._observed_totals(chunk, labels)
             dev = self._tensor
             t0 = time.perf_counter()
             scores = score_pose_batch(
                 rb_verts, rb_colors, rb_valid,
                 dev(poses, torch.float32), dev(ids), dev(labels),
-                dev(seg_count[labels], torch.float32), self._proj,
+                dev(totals, torch.float32), self._proj,
                 self._scene, cfg, bank_backface=rb_backface,
                 bank_icp_samples=self._bank_icp_samples,
                 bank_icp_normals=self._bank_icp_normals,
@@ -376,20 +533,30 @@ class PerceptionEnv:
 
     def compute_greedy_poses(
         self, candidates: Sequence[ObjectState], do_icp: bool | None = None,
+        collision_ordering: bool = False,
     ) -> tuple[GraphState, list[ScoredState]]:
-        """Per-(model, segment) argmin over scored candidates with the
-        |target - source| < 30 filter."""
+        """Argmin over scored candidates with the |target - source| < 30
+        filter: per (model, segment) in 6-DoF mode, per model in 3-DoF mode.
+        collision_ordering (3-DoF) takes the commit order of the reference's
+        greedy-ICP baseline instead (`_commit_with_collisions`), so two
+        models cannot claim one physical object."""
         t0 = time.perf_counter()
         scored = self.score_object_states(candidates, do_icp)
-        best: dict[tuple, ScoredState] = {}
-        for su in scored:
-            if su.cost in (-1, -2):
-                continue
-            if abs(su.target_cost - su.source_cost) >= 30:
-                continue
-            key = (su.state.id, su.state.segmentation_label_id)
-            if key not in best or su.cost < best[key].cost:
-                best[key] = su
+        six_dof = (self._input is not None
+                   and self._input.use_external_pose_list)
+        if collision_ordering and not six_dof:
+            best = self._commit_with_collisions(scored)
+        else:
+            best = {}
+            for su in scored:
+                if su.cost in (-1, -2):
+                    continue
+                if abs(su.target_cost - su.source_cost) >= 30:
+                    continue
+                key = ((su.state.id, su.state.segmentation_label_id)
+                       if six_dof else (su.state.id,))
+                if key not in best or su.cost < best[key].cost:
+                    best[key] = su
         state = GraphState()
         chosen = []
         for key in sorted(best):
@@ -404,6 +571,62 @@ class PerceptionEnv:
         self.stats.time = time.perf_counter() - t0
         self.stats.scenes_valid = sum(1 for s in scored if s.cost >= 0)
         return state, chosen
+
+    def _commit_with_collisions(self, scored: Sequence[ScoredState]) -> dict:
+        """The reference greedy-ICP baseline's commit order
+        (ComputeGreedyICPPoses): over every permutation of the models (the
+        cheapest-first one beyond 5 models), each model commits its
+        cheapest candidate whose post-ICP world pose does not collide with
+        those already committed; a model that cannot commit pays 200
+        (costs are <= 200). The cheapest total wins."""
+        per_model: dict[int, list[ScoredState]] = {}
+        for su in scored:
+            if su.cost in (-1, -2):
+                continue
+            if abs(su.target_cost - su.source_cost) >= 30:
+                continue
+            per_model.setdefault(su.state.id, []).append(su)
+        for mid in per_model:
+            per_model[mid].sort(key=lambda su: su.cost)
+        adj_world: dict[int, ObjectState] = {}
+
+        def world_state(su: ScoredState) -> ObjectState:
+            if id(su) not in adj_world:
+                adj_world[id(su)] = dataclasses.replace(
+                    su.state, pose=self.camera_to_world_pose(
+                        su.adjusted_pose_cam, su.state.id))
+            return adj_world[id(su)]
+
+        mids = sorted(per_model)
+        miss_penalty = 200
+        orders = (itertools.permutations(mids) if len(mids) <= 5
+                  else [tuple(sorted(
+                      mids, key=lambda m: per_model[m][0].cost))])
+        best_total, best_sel = None, {}
+        for order in orders:
+            placed = GraphState()
+            sel: dict[tuple, ScoredState] = {}
+            total = 0
+            for mid in order:
+                chosen = None
+                for su in per_model[mid]:
+                    if self.is_valid_pose(world_state(su), placed=placed,
+                                          after_refinement=True):
+                        chosen = su
+                        break
+                if chosen is None:
+                    total += miss_penalty
+                    continue
+                total += chosen.cost
+                sel[(mid,)] = chosen
+                placed = placed.append(world_state(chosen))
+            if best_total is None or total < best_total:
+                best_total, best_sel = total, sel
+        return best_sel
+
+    # ------------------------------------------------------------------
+    # Successor generation
+    # ------------------------------------------------------------------
 
     def generate_successors_6dof(self, pose_lists: dict[str, np.ndarray]
                                  ) -> list[ObjectState]:
@@ -424,3 +647,40 @@ class PerceptionEnv:
                 if self.is_valid_pose(st):
                     out.append(st)
         return out
+
+    def generate_successors_3dof(self) -> list[ObjectState]:
+        """`grid_3dof`, validity-pruned; then the histogram / voxel pruning
+        the EnvConfig enables."""
+        env = self.env
+        grid = self.grid_3dof()
+        ok = self.valid_poses(grid)
+        out = [s for s, keep in zip(grid, ok) if keep]
+        if env.histogram_pruning or env.voxel_pruning:
+            out = prune_successors(self, out,
+                                   use_histogram=env.histogram_pruning,
+                                   use_voxels=env.voxel_pruning)
+        return out
+
+    def grid_3dof(self) -> list[ObjectState]:
+        """The (x, y, yaw) grid over the search region at `res` and
+        `theta_res` (one yaw for a symmetric model), standing on the table,
+        before any pruning."""
+        rin, env = self._input, self.env
+        grid = []
+        for mid, model in enumerate(self.bank.models):
+            n_theta = 1 if model.symmetric else max(
+                1, int(round(2 * np.pi / env.theta_res)))
+            x = rin.x_min
+            while x <= rin.x_max + 1e-9:
+                y = rin.y_min
+                while y <= rin.y_max + 1e-9:
+                    for k in range(n_theta):
+                        pose = ContPose.from_euler(
+                            x, y, rin.table_height, 0.0, 0.0,
+                            k * env.theta_res)
+                        grid.append(ObjectState(
+                            id=mid, symmetric=model.symmetric, pose=pose,
+                            segmentation_label_id=1))
+                    y += env.res
+                x += env.res
+        return grid

@@ -1,9 +1,11 @@
-"""Recognition API in greedy mode (PERCH 2.0 greedy render path).
+"""Recognition API: the reference ObjectRecognizer's three ways to localise.
 
 Counterpart of `perception_tpu/pipeline/recognizer.py`:
-`localize_objects_greedy_render` sets the input, generates the 6-DoF
-candidates, takes the greedy argmin and reports world poses. The tree search
-(`localize_objects`) and the greedy-ICP baseline are not ported yet.
+`localize_objects_greedy_render` (PERCH 2.0: 6-DoF candidates, ICP, greedy
+argmin), `localize_objects_greedy_icp` (the brute-force 3-DoF baseline:
+every grid candidate scored with ICP, per model the best rendered fitness)
+and `localize_objects` (PERCH 1.0: the tree search over composed scenes).
+Each sets the input and reports world poses.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from perception_tpu_torch.io.poses_file import (
     write_output_stats,
 )
 from perception_tpu_torch.pipeline.env import PerceptionEnv, RecognitionInput
+from perception_tpu_torch.pipeline.search import TreeSearch
 
 
 @dataclasses.dataclass
@@ -135,11 +138,68 @@ class ObjectRecognizer:
             self._write_outputs(output_dir, result, chosen)
         return result
 
+    def localize_objects_greedy_icp(
+        self, rin: RecognitionInput, output_dir: str | None = None,
+    ) -> LocalizationResult:
+        """The brute-force baseline: every 3-DoF grid candidate scored with
+        ICP; per model the candidate with the lowest rendered cost (the
+        baseline ignores the observed cost), reported at its post-ICP pose.
+        As in the JAX package, without the reference's collision commit
+        order (`compute_greedy_poses(collision_ordering=True)` has it;
+        ROADMAP.md, Queue 3)."""
+        env = self.env
+        t0 = time.perf_counter()
+        env.set_input(rin)
+        scored = env.score_object_states(env.generate_successors_3dof(),
+                                         do_icp=True)
+        best = {}
+        for su in scored:
+            if su.cost < 0:
+                continue
+            mid = su.state.id
+            if mid not in best or su.target_cost < best[mid].target_cost:
+                best[mid] = su
+        state = GraphState()
+        for mid in sorted(best):
+            su = best[mid]
+            state = state.append(ObjectState(
+                id=mid, symmetric=su.state.symmetric,
+                pose=env.camera_to_world_pose(su.adjusted_pose_cam, mid),
+                segmentation_label_id=su.state.segmentation_label_id))
+        env.stats.time = time.perf_counter() - t0
+        result = self._result_from_state(state)
+        env.stats.update_peak_memory(env.device)
+        if output_dir is not None:
+            self._write_outputs(output_dir, result, list(best.values()))
+        return result
+
+    def localize_objects(self, rin: RecognitionInput,
+                         output_dir: str | None = None,
+                         **search_kwargs) -> LocalizationResult:
+        """The tree search (`TreeSearch(env, **search_kwargs)`) over the
+        3-DoF grid candidates."""
+        env = self.env
+        t0 = time.perf_counter()
+        env.set_input(rin)
+        search = TreeSearch(env, **search_kwargs)
+        state = search.plan()
+        env.stats.expands = search.stats.expands
+        env.stats.time = time.perf_counter() - t0
+        result = self._result_from_state(state)
+        env.stats.update_peak_memory(env.device)
+        if output_dir is not None:
+            self._write_outputs(output_dir, result, [])
+        return result
+
     def _result_from_state(self, state: GraphState) -> LocalizationResult:
         self.last_state = state
         names, poses, tfs, pres = [], [], [], []
-        seg_names = (self.env._input.segmented_object_names
-                     if self.env._input is not None else [])
+        # Segment names name instances only in 6-DoF mode; a 3-DoF input is
+        # one segment.
+        rin = self.env._input
+        seg_names = (rin.segmented_object_names
+                     if rin is not None and rin.use_external_pose_list
+                     else [])
         for obj in state.object_states:
             model = self.bank.models[obj.id]
             lid = obj.segmentation_label_id

@@ -1,7 +1,10 @@
 """Candidate-pose scoring: render -> cloud -> ICP -> fused cost.
 
-Counterpart of `perception_tpu/pipeline/scorer.py` for the greedy 6-DoF
-configuration:
+Counterpart of `perception_tpu/pipeline/scorer.py`, for the 6-DoF
+configuration (cost types 2 / 3, each pose against its segment) and the
+3-DoF one (cost types 0 / 1, without segmentation labels: every pose against
+the one scene-wide segment; with `use_tree_occlusion` a pose that renders in
+front of its source is flagged and scores -1):
 
     raster by `backend` (the direct kernel for "auto" / "pallas_direct", the
     coefficient-table kernel for "pallas", the scatter-bin kernel for
@@ -144,8 +147,6 @@ def _unported(what: str) -> NotImplementedError:
 def _check_config(cfg: ScorerConfig) -> None:
     if cfg.cost_type not in (0, 1, 2, 3):
         raise ValueError(f"unknown cost_type {cfg.cost_type}")
-    if cfg.use_tree_occlusion:
-        raise _unported("use_tree_occlusion")
     if cfg.do_icp:
         if cfg.icp_mode == "projective":
             raise _unported("icp_mode='projective' (organised map tensors)")

@@ -1,25 +1,29 @@
 """Localisation service: a long-lived recogniser behind a JSON/HTTP API.
 
-Counterpart of `perception_tpu/serve.py` for the greedy mode:
+Counterpart of `perception_tpu/serve.py`:
 
-    POST /localize   {"depth_image": [[...]], "label_mask": [[...]],
+    POST /localize   {"depth_image": [[...]], "label_mask": [[...]] | null,
                       "color_image": [[[...]]] | null, "depth_factor": 100,
                       "cam_to_world": [[...4x4]] | null,
                       "segmented_object_names": [...],
                       "pose_lists": {"obj": [[x,y,z,qx,qy,qz,qw], ...]},
-                      "mode": "greedy"}
+                      "x_min", "x_max", "y_min", "y_max", "table_height",
+                      "mode": "greedy" | "tree" | "greedy_icp"}
                   -> {"detections": [{"name", "translation",
                                       "quaternion_xyzw", "transform"}],
                       "stats": {"scenes_rendered", "time", "gpu_time",
-                                "decode_time"}}
+                                "decode_time", "expands"}}
     GET /status      the last /localize response
 
-A `color_image` (0..255 RGB) reaches `set_input`, which builds the observed
-Lab colours that the recogniser's colour-gated cost (`use_color_cost`) reads.
-`decode_time` is the seconds spent turning the JSON lists into arrays.
-
-Modes "tree" and "greedy_icp" and the /overlay.png view answer with an error:
-they are not ported yet (ROADMAP.md, Queue 1).
+"greedy" localises the 6-DoF candidates of `pose_lists`; "tree" (the tree
+search) and "greedy_icp" (the brute-force ICP baseline) search the 3-DoF
+(x, y, yaw) grid over the region `x_min` .. `y_max` (metres, world frame) on
+the table at `table_height`. A request with a `label_mask` is a 6-DoF input,
+one without it a 3-DoF input. A `color_image` (0..255 RGB) reaches
+`set_input`, which builds the observed Lab colours that the colour-gated
+cost (`use_color_cost`) reads. `decode_time` is the seconds spent turning
+the JSON lists into arrays. The /overlay.png view answers 501: it is not
+ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import numpy as np
 
 from perception_tpu_torch.pipeline.env import RecognitionInput
 
+MODES = ("greedy", "tree", "greedy_icp")
+
 
 class LocalizerService:
     def __init__(self, recognizer):
@@ -40,9 +46,8 @@ class LocalizerService:
 
     def handle(self, payload: dict) -> dict:
         mode = payload.get("mode", "greedy")
-        if mode != "greedy":
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported to PyTorch yet (only 'greedy')")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
         t0 = time.perf_counter()
         depth = np.asarray(payload["depth_image"], np.float64)
         label = (np.asarray(payload["label_mask"], np.int32)
@@ -59,11 +64,20 @@ class LocalizerService:
                 "segmented_object_names",
                 [s.name for s in self.recognizer.specs]),
             use_external_pose_list=label is not None)
+        # The 3-DoF support-surface region.
+        for field in ("table_height", "x_min", "x_max", "y_min", "y_max"):
+            if field in payload:
+                setattr(rin, field, float(payload[field]))
         pose_lists = {k: np.asarray(v, np.float64)
                       for k, v in (payload.get("pose_lists") or {}).items()}
         decode_time = time.perf_counter() - t0
-        result = self.recognizer.localize_objects_greedy_render(
-            rin, pose_lists)
+        if mode == "greedy":
+            result = self.recognizer.localize_objects_greedy_render(
+                rin, pose_lists)
+        elif mode == "tree":
+            result = self.recognizer.localize_objects(rin)
+        else:
+            result = self.recognizer.localize_objects_greedy_icp(rin)
         stats = self.recognizer.env.stats
         out = {
             "detections": [
@@ -81,6 +95,7 @@ class LocalizerService:
                 "time": stats.time,
                 "gpu_time": stats.gpu_time,
                 "decode_time": decode_time,
+                "expands": stats.expands,
             },
         }
         self.last_response = out

@@ -16,6 +16,8 @@ import struct
 import sys
 import zlib
 
+import dataclasses
+
 import cv2
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ import pytest
 from perception_tpu.cli import main as jax_cli
 from perception_tpu.core.pose import CAM_TO_BODY
 from perception_tpu.io import masks as jmasks
-from perception_tpu_torch import cli
+from perception_tpu_torch import cli, convert
 from perception_tpu_torch.io import masks as pmasks
 from perception_tpu_torch.io.images import read_png, write_png
 from perception_tpu_torch.io.poses_file import read_output_poses
@@ -135,13 +137,119 @@ def test_yaml_config_without_the_yaml_module_raises(tmp_path, monkeypatch):
     assert cli.load_config(str(json_path)) == {"mode": "greedy"}
 
 
+@pytest.fixture(scope="module")
+def table_files(tmp_path_factory):
+    """test_torch_3dof's pair scene as files: the crate and the post as PLY,
+    the observation as a 16-bit depth PNG in mm, the 3-DoF region."""
+    from perception_tpu_torch.core.config import (
+        CameraIntrinsics,
+        EnvConfig,
+        PerchConfig,
+    )
+    from perception_tpu_torch.core.mesh import ModelBank
+    from perception_tpu_torch.pipeline.env import (
+        PerceptionEnv,
+        RecognitionInput,
+    )
+    from tests.test_torch_3dof import PAIR_GT, PAIR_REGION, TABLE, crate, post
+
+    root = tmp_path_factory.mktemp("cli_table")
+    perch = PerchConfig(gpu_stride=2, gpu_batch_size=32,
+                        sensor_resolution=0.02,
+                        min_neighbor_points_for_valid_pose=5,
+                        max_icp_iterations=10, use_cylinder_observed=True)
+    env_cfg = EnvConfig(res=0.04, theta_res=np.pi / 4,
+                        max_points_per_pose=256, max_observed_points=2048,
+                        max_points_per_label=512, max_labels=2,
+                        icp_downsample=2, cost_crop_targets=0,
+                        icp_mode="fused", kernel_backend="pallas_bin")
+    env = PerceptionEnv(
+        ModelBank.from_models(convert.models_from_jax([crate(), post()]),
+                              t_cap=16),
+        convert.dataclass_from_jax(CAM, CameraIntrinsics), perch,
+        dataclasses.replace(env_cfg, width=CAM.width, height=CAM.height),
+        device="cpu")
+    env._input = RecognitionInput(depth_image=None,
+                                  cam_to_world=CAM_TO_BODY.copy())
+    depth, _, _ = env.render_composite(convert.states_from_jax(PAIR_GT))
+    (root / "models").mkdir()
+    _write_box_ply(root / "models" / "crate.ply", 0.10, 0.07, 0.12,
+                   (200, 40, 40))
+    _write_box_ply(root / "models" / "post.ply", 0.06, 0.06, 0.16,
+                   (40, 200, 40))
+    write_png(str(root / "depth.png"), (depth * 10).astype(np.uint16))
+    cfg = _config("auto")
+    cfg["input"] = {"depth_image": "depth.png", "depth_factor": 1000,
+                    "cam_to_world": CAM_TO_BODY.tolist(),
+                    "table_height": TABLE, **PAIR_REGION}
+    cfg["model_bank"] = [
+        {"name": "crate", "path": "models/crate.ply"},
+        {"name": "post", "path": "models/post.ply", "symmetric": True}]
+    cfg["use_external_pose_list"] = 0
+    cfg["perch_params"] = dataclasses.asdict(perch)
+    cfg["env_params"] = {k: v for k, v in dataclasses.asdict(env_cfg).items()
+                         if k not in ("width", "height")}
+    return root, cfg
+
+
 @pytest.mark.parametrize("mode", ["tree", "greedy_icp"])
-def test_unported_modes_raise(tmp_path, mode):
-    path = tmp_path / "scene.json"
-    path.write_text(json.dumps({"mode": mode}))
-    with pytest.raises(NotImplementedError):
-        cli.main(["localize", "--config", str(path), "--output",
-                  str(tmp_path / "out"), "--device", "cpu"])
+def test_unported_modes_raise(table_files, mode, capsys):
+    """The modes that were not ported raised here; they run now. The CLI
+    in `mode` on the 3-DoF table files (no instance mask, scored through
+    the bin raster) must report what the port's recogniser reports for the
+    same files in process, both models placed, and write its outputs."""
+    from perception_tpu_torch.core.config import (
+        CameraIntrinsics,
+        EnvConfig,
+        PerchConfig,
+    )
+    from perception_tpu_torch.pipeline.env import RecognitionInput
+    from perception_tpu_torch.pipeline.recognizer import (
+        ModelSpec,
+        ObjectRecognizer,
+    )
+
+    root, cfg = table_files
+    cfg = {**cfg, "mode": mode}
+    (root / f"{mode}.json").write_text(json.dumps(cfg))
+    out_dir = root / f"out_{mode}"
+    build.reset_counts()
+    rc = cli.main(["localize", "--config", str(root / f"{mode}.json"),
+                   "--output", str(out_dir), "--device", "cpu"])
+    assert rc == 0
+    assert build.TWIN_CALLS["raster_bin"] > 0
+    assert (build.TWIN_CALLS["icp_fused"] > 0) == (mode == "greedy_icp")
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (out_dir / "output_poses.txt").exists()
+    assert (out_dir / "output_stats.txt").exists()
+
+    env_cfg = EnvConfig.from_yaml_dict({**cfg["env_params"],
+                                        "width": CAM.width,
+                                        "height": CAM.height})
+    rec = ObjectRecognizer(
+        [ModelSpec("crate", str(root / "models" / "crate.ply")),
+         ModelSpec("post", str(root / "models" / "post.ply"),
+                   symmetric=True)],
+        convert.dataclass_from_jax(CAM, CameraIntrinsics),
+        PerchConfig.from_yaml_dict(cfg), env_cfg,
+        use_external_pose_list=False, target_triangles=16, device="cpu")
+    rin = RecognitionInput(
+        depth_image=read_png(str(root / "depth.png")).astype(np.float64),
+        depth_factor=1000.0, cam_to_world=CAM_TO_BODY.copy(),
+        use_external_pose_list=False,
+        **{k: cfg["input"][k] for k in ("x_min", "x_max", "y_min", "y_max",
+                                        "table_height")})
+    ref = (rec.localize_objects(rin) if mode == "tree"
+           else rec.localize_objects_greedy_icp(rin))
+    assert summary["detected"] == ref.names
+    assert sorted(ref.names) == ["crate", "post"]
+    np.testing.assert_allclose(
+        summary["poses"],
+        [[p.x, p.y, p.z, *p.quaternion()] for p in ref.poses], atol=1e-9)
+    recs = read_output_poses(str(out_dir / "output_poses.txt"))
+    assert [r["name"] for r in recs] == ref.names
+    if mode == "tree":
+        assert summary["expands"] == rec.env.stats.expands >= 2
 
 
 def test_cli_and_readers_are_port_modules():

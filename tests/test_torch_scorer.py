@@ -201,14 +201,57 @@ def test_cpu_calls_run_the_twins():
 @pytest.mark.parametrize("change", [
     dict(icp_mode="projective"), dict(icp_source="model"),
     dict(cost_cloud="render"), dict(icp_render_scale=2),
-    dict(use_tree_occlusion=True), dict(backend="xla"),
+    dict(cost_type=3), dict(backend="xla"),
     dict(icp_crop_share="pose"), dict(icp_crop_mode="spread"),
 ])
 def test_unported_scorer_branches_raise(change):
+    """Each branch the port has not: the colour cost without the face Lab
+    table (cost_type 3 here) among them; use_tree_occlusion, once in this
+    list, is ported (test_tree_occlusion_scores_match_jax)."""
     args, cfg, kw = _small_problem()
     with pytest.raises(NotImplementedError):
         pscorer.score_pose_batch(*args, dataclasses.replace(cfg, **change),
                                  **kw)
+
+
+def test_tree_occlusion_scores_match_jax():
+    """use_tree_occlusion on the box scene without ICP, against a source
+    whose upper half of object 0's pixels lies 20 cm further and carries
+    object 1's label (as a composed tree source can): object 0's candidates
+    render in front of it at a mismatching label and are flagged; flags
+    equal JAX's, flagged poses score -1, totals within the slice
+    tolerance."""
+    env = make_env()
+    env.env = dataclasses.replace(env.env, icp_mode="fused",
+                                  kernel_backend="pallas_direct_interpret")
+    env.set_observation_from_states(gt_states())
+    cfg = dataclasses.replace(env._scorer_config(do_icp=False),
+                              use_tree_occlusion=True)
+    depth = np.asarray(env._scene.source_depth).copy()
+    label = np.asarray(env._scene.source_label).copy()
+    rows = np.nonzero(label == 1)[0]
+    band = (label == 1) & (np.arange(depth.shape[0])[:, None]
+                           < (rows.min() + rows.max()) // 2)
+    depth[band] += 20
+    label[band] = 2
+    scene = env._scene._replace(source_depth=jnp.asarray(depth),
+                                source_label=jnp.asarray(label))
+    cands = _box_candidates(8, seed=5)
+    poses = np.stack([env.pose_to_camera(s) for s in cands])
+    ids = np.asarray([s.id for s in cands], np.int32)
+    labels = np.asarray([s.segmentation_label_id - 1 for s in cands], np.int32)
+    totals = np.asarray(env._observed.seg_count, np.float32)[labels]
+    ref, out = _score_both(
+        env._render_bank,
+        (jnp.asarray(poses), jnp.asarray(ids), jnp.asarray(labels),
+         jnp.asarray(totals), env._proj, scene),
+        cfg, env._bank_icp_samples, env._bank_icp_normals)
+    flags = out.pose_occluded.numpy()
+    np.testing.assert_array_equal(flags, np.asarray(ref.pose_occluded))
+    np.testing.assert_array_equal(flags, ids == 0)
+    assert (out.total_cost.numpy()[flags == 1] == -1).all()
+    r_tot, o_tot = np.asarray(ref.total_cost), out.total_cost.numpy()
+    assert (r_tot == o_tot).mean() >= 0.75 and np.abs(r_tot - o_tot).max() <= 5
 
 
 def test_color_score_pose_batch_bench_problem_matches_jax(monkeypatch):

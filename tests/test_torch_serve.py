@@ -159,23 +159,24 @@ def test_localize_round_trip_matches_jax(jax_env):
 
 
 def test_unported_service_paths_answer_with_errors(jax_env):
+    """/overlay.png is not ported (501); an unknown mode is an error (500).
+    The "tree" and "greedy_icp" modes run: test_search_modes_round_trip."""
     rec = _port_recognizer(jax_env)
     service = LocalizerService(rec)
-    for mode in ("tree", "greedy_icp"):
-        with pytest.raises(NotImplementedError):
-            service.handle({**_payload(jax_env, {}), "mode": mode})
+    with pytest.raises(ValueError, match="unknown mode"):
+        service.handle({**_payload(jax_env, {}), "mode": "beam"})
     server = serve(rec, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}"
     try:
-        req = urllib.request.Request(
-            f"{url}/localize",
-            data=json.dumps({**_payload(jax_env, {}), "mode": "tree"}).encode())
+        body = {**_payload(jax_env, {}), "mode": "beam"}
+        req = urllib.request.Request(f"{url}/localize",
+                                     data=json.dumps(body).encode())
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(req, timeout=30)
         assert err.value.code == 500
-        assert "not ported" in json.loads(err.value.read())["error"]
+        assert "unknown mode" in json.loads(err.value.read())["error"]
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(f"{url}/overlay.png", timeout=30)
         assert err.value.code == 501
@@ -184,6 +185,73 @@ def test_unported_service_paths_answer_with_errors(jax_env):
         server.server_close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+def _table_recognizer():
+    """A port recogniser over test_torch_3dof's pair scene models and
+    settings, and that scene's observation rendered by it."""
+    from tests.test_torch_3dof import PAIR_GT, crate, post
+
+    perch = PerchConfig(gpu_stride=2, gpu_batch_size=32,
+                        sensor_resolution=0.02,
+                        min_neighbor_points_for_valid_pose=5,
+                        max_icp_iterations=10, use_cylinder_observed=True)
+    env_cfg = EnvConfig(width=CAM.width, height=CAM.height, res=0.04,
+                        theta_res=np.pi / 4, max_points_per_pose=256,
+                        max_observed_points=2048, max_points_per_label=512,
+                        max_labels=2, icp_downsample=2, cost_crop_targets=0,
+                        icp_mode="fused")
+    rec = ObjectRecognizer.from_models(
+        convert.models_from_jax([crate(), post()]), PCAM, perch, env_cfg,
+        t_cap=16, device="cpu")
+    rec.env._input = RecognitionInput(depth_image=None,
+                                      cam_to_world=CAM_TO_BODY.copy())
+    depth, _, _ = rec.env.render_composite(convert.states_from_jax(PAIR_GT))
+    return rec, depth.astype(np.float64)
+
+
+@pytest.mark.parametrize("mode", ["tree", "greedy_icp"])
+def test_search_modes_round_trip(mode):
+    """POST /localize in `mode` with a 3-DoF payload (no label_mask, the
+    search region and table height) over the port's HTTP service: the
+    detections the recogniser gives for the same input in process."""
+    from tests.test_torch_3dof import PAIR_REGION, TABLE
+
+    rec, depth = _table_recognizer()
+    payload = {"depth_image": depth.tolist(), "depth_factor": 100.0,
+               "cam_to_world": CAM_TO_BODY.tolist(), "table_height": TABLE,
+               "mode": mode, **PAIR_REGION}
+    rin = RecognitionInput(depth_image=depth, depth_factor=100.0,
+                           cam_to_world=CAM_TO_BODY.copy(),
+                           use_external_pose_list=False,
+                           table_height=TABLE, **PAIR_REGION)
+    ref = (rec.localize_objects(rin) if mode == "tree"
+           else rec.localize_objects_greedy_icp(rin))
+    assert sorted(ref.names) == ["crate", "post"]
+    server = serve(rec, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/localize"
+    try:
+        build.reset_counts()
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+    assert (build.TWIN_CALLS["icp_fused"] > 0) == (mode == "greedy_icp")
+    assert not rec.env._input.use_external_pose_list
+    assert rec.env._input.x_min == PAIR_REGION["x_min"]
+    assert [d["name"] for d in out["detections"]] == ref.names
+    np.testing.assert_allclose(
+        [d["translation"] for d in out["detections"]],
+        [[p.x, p.y, p.z] for p in ref.poses], atol=1e-9)
+    assert (out["stats"]["expands"] >= 2) == (mode == "tree")
 
 
 def test_recognizer_from_mesh_files_writes_outputs(jax_env, tmp_path):
@@ -227,12 +295,38 @@ def test_unported_env_options_raise(jax_env, change):
 
 
 def test_unported_inputs_raise(jax_env):
+    """The 3-DoF input (no instance mask) was not ported and raised; now
+    set_input takes it: one segment of every observed point inside the
+    search region, the JAX package's observed_cloud_from_depth on the same
+    frame with its bounds filter."""
+    import jax.numpy as jnp
+
+    from perception_tpu.ops.pointcloud import observed_cloud_from_depth
+
     env = _port_env(jax_env)
     rin = jax_env._input
-    with pytest.raises(NotImplementedError):     # 3-DoF input
-        env.set_input(RecognitionInput(depth_image=rin.depth_image,
-                                       label_mask=rin.label_mask,
-                                       use_external_pose_list=False))
+    region = dict(x_min=0.5, x_max=0.7, y_min=-0.05, y_max=0.3,
+                  table_height=-0.2)
+    env.set_input(RecognitionInput(depth_image=rin.depth_image,
+                                   cam_to_world=rin.cam_to_world,
+                                   use_external_pose_list=False, **region))
+    cam, e = env.camera, env.env
+    ref = observed_cloud_from_depth(
+        jnp.asarray(rin.depth_image, jnp.float32),
+        jnp.zeros((cam.height, cam.width, 3), jnp.float32),
+        jnp.ones((cam.height, cam.width), jnp.int32),
+        fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+        height=cam.height, stride=env.perch.gpu_stride,
+        depth_factor=rin.depth_factor, max_points=e.max_observed_points,
+        seg_cap=e.max_points_per_label, num_labels=e.max_labels,
+        use_label_filter=False, use_bounds_filter=True,
+        bounds=jnp.asarray([0.7, 0.5, 0.3, -0.05, 1.8, -0.21], jnp.float32),
+        cam_to_world=jnp.asarray(rin.cam_to_world, jnp.float32))
+    obs = env._observed
+    assert 0 < int(obs.count) < int((rin.depth_image > 0).sum())
+    assert int(obs.count) == int(ref.count) == int(obs.seg_count[0])
+    np.testing.assert_array_equal(obs.seg_xyz.numpy(), np.asarray(ref.seg_xyz))
+    assert env._scorer_config().cost_type == 0
 
 
 def test_render_composite_matches_jax(jax_env):
