@@ -29,7 +29,20 @@ among those compared), served "greedy_icp" (each object within 30 mm) and
 "tree" requests and an MHA* plan (within one grid step in x and y, and
 theta_res in yaw), the CLI in both modes (the tree through the bin
 raster), and the scene at the configuration defaults (detections printed,
-no bar). The 1-NN kernel, the three
+no bar). Then the scorer's and env's other branches on the bench scene:
+the speed profile (`EnvConfig.fast_profile()`: the fused ICP on the model
+source's 256 surface samples against 128 targets, its slice and a served
+request), the re-render cost on the colour ROI batch (two rasters; the
+colour cost reads the re-render's face ids), the coarse pre-ICP raster
+(stride 16 over 16x16), the per-pose spread crop of 128 targets, projective
+ICP (no ICP kernel; the median translation error of the visible objects'
+poses no worse after ICP), the composed colour cost (the colour full-frame
+batch without the face Lab table: the 1-NN kernel at 2048 x 1280 x 256
+beside torch.cdist), the fine-stride re-score (`set_input` time and peak
+memory with the stride-4 scene, the stride-4 batch against its twins, a
+served request), a pose refinement round (a served request and the poses
+it scored) and the particle log-likelihood (both modes, card against CPU).
+The 1-NN kernel, the three
 rasters and the keys path's setup, the fused ICP (every mode) and the three
 cost kernels are also held against their twins at edge shapes (several
 reference tiles, ties, a pose with no valid reference; one pose, a 24x24
@@ -41,7 +54,8 @@ source, targets at max_correspondence / sensor_resolution +-1 ulp, N = 1,
 N = 13, P = 77 with S = 45, a cost with P = 15000; for the colour costs
 also only explain-only points, tied targets whose copies fail the gate
 where the originals pass and the reverse, face ids outside [0, T)). Last,
-it traces one depth, noisy and gicp batch with torch.profiler (device busy
+it traces one depth, noisy and gicp batch and four of the branch batches
+(fast, re-render, coarse, projective) with torch.profiler (device busy
 time, top ops). A kernel's `ms` is one launch between two CUDA events, the host's
 enqueue of it included; its `device_ms` is the device alone (a device spin
 queued ahead of the start event, so the host enqueues the launch while the
@@ -99,6 +113,7 @@ from perception_tpu_torch.ops import (
     cost_fused_color,
     icp_fused,
     knn,
+    likelihood,
     raster_bin,
     raster_direct,
     raster_keys,
@@ -190,17 +205,18 @@ KERNELS = {
         "perception_tpu_torch/csrc/knn.cu",
         "perception_tpu/ops/pallas_knn.py:71"),
 }
-# The wrapper each kernel is recorded at: (module, attribute).
+# The wrappers each kernel is recorded at: (module, attribute) pairs.
 SITES = {
-    "raster_direct": (raster_direct, "rasterize_direct"),
-    "raster_keys": (raster_keys, "rasterize_keys"),
-    "keys_setup": (raster_keys, "setup_table"),
-    "raster_bin": (raster_bin, "rasterize_bin"),
-    "icp_fused": (scorer, "icp_fused"),
-    "cost_fused": (cost, "nn_cost_fused"),
-    "cost_fused_color": (cost, "nn_cost_fused_color"),
-    "cost_fused_color_tri": (cost, "nn_cost_fused_color_tri"),
-    "nn1_batch": (icp_ops, "nn1_batch"),
+    "raster_direct": ((raster_direct, "rasterize_direct"),),
+    "raster_keys": ((raster_keys, "rasterize_keys"),),
+    "keys_setup": ((raster_keys, "setup_table"),),
+    "raster_bin": ((raster_bin, "rasterize_bin"),),
+    "icp_fused": ((scorer, "icp_fused"),),
+    "cost_fused": ((cost, "nn_cost_fused"),),
+    "cost_fused_color": ((cost, "nn_cost_fused_color"),),
+    "cost_fused_color_tri": ((cost, "nn_cost_fused_color_tri"),),
+    # The composed refiners' association, and the composed cost's.
+    "nn1_batch": ((icp_ops, "nn1_batch"), (scorer, "nn1_batch")),
 }
 ICP_MODES = ("exact", "d2d", "sym", "adaptive")   # beside p2p (depth batch)
 DEPTH = ("raster_direct", "icp_fused", "cost_fused")
@@ -275,7 +291,9 @@ def recorded_kernel_calls():
     """Record the first call of each kernel wrapper made by the pipeline
     (its arguments exactly as the main path gives them)."""
     seen: dict[str, tuple] = {}
-    saved = {name: getattr(mod, attr) for name, (mod, attr) in SITES.items()}
+    sites = [(name, mod, attr) for name, pairs in SITES.items()
+             for mod, attr in pairs]
+    saved = [getattr(mod, attr) for _, mod, attr in sites]
 
     def recorder(fn, name):
         def call(*args, **kwargs):
@@ -283,13 +301,13 @@ def recorded_kernel_calls():
             return fn(*args, **kwargs)
         return call
 
-    for name, (mod, attr) in SITES.items():
-        setattr(mod, attr, recorder(saved[name], name))
+    for (name, mod, attr), fn in zip(sites, saved):
+        setattr(mod, attr, recorder(fn, name))
     try:
         yield seen
     finally:
-        for name, (mod, attr) in SITES.items():
-            setattr(mod, attr, saved[name])
+        for (_, mod, attr), fn in zip(sites, saved):
+            setattr(mod, attr, fn)
 
 
 def nbytes(tensors) -> int:
@@ -703,7 +721,7 @@ def check_slice(bp, label: str, equal_frac: float = 0.98, max_diff: int = 2,
         bank_backface=env._render_bank[3].cpu(),
         bank_icp_samples=env._bank_icp_samples.cpu(),
         bank_icp_normals=env._bank_icp_normals.cpu(),
-        bank_tri_lab=env._render_bank_lab.cpu())
+        bank_tri_lab=env._render_bank_lab.cpu() if bp.use_lab else None)
     cpu_s = time.perf_counter() - t0
     g_tot = out.total_cost[:N_CPU].cpu()
     tot_eq = (g_tot == ref.total_cost).float().mean().item()
@@ -731,11 +749,13 @@ def check_slice(bp, label: str, equal_frac: float = 0.98, max_diff: int = 2,
             f"{label}: translations within 1 mm on {trans_ok:.3f}")
 
 
-def check_served_path(bp, dev, label: str, requests: int) -> dict:
+def check_served_path(bp, dev, label: str, requests: int,
+                      responses: list | None = None) -> dict:
     """Recogniser from the bench models and configuration, the port's own
     GT observation (with its colour image), then `requests` /localize
-    requests with every candidate. Returns the kernel launches and twin
-    calls counted during the requests alone."""
+    requests with every candidate, each object visible in the observation
+    within 20 mm. Returns the kernel launches counted during the requests
+    alone; appends the responses to `responses` if given."""
     env = bp.env
     rec = ObjectRecognizer.from_models(env.bank.models, env.camera, env.perch,
                                        env.env, t_cap=1024, device=dev)
@@ -765,9 +785,12 @@ def check_served_path(bp, dev, label: str, requests: int) -> dict:
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/localize"
-    latency, responses, split = [], [], []
+    latency, split = [], []
+    responses = [] if responses is None else responses
     stats = rec.env.stats
     try:
+        sync()
+        torch.cuda.reset_peak_memory_stats()
         build.reset_counts()
         for _ in range(requests):
             gpu0 = stats.gpu_time
@@ -787,6 +810,7 @@ def check_served_path(bp, dev, label: str, requests: int) -> dict:
                 "score_batch_ms": (stats.gpu_time - gpu0) * 1e3})
         launches = dict(build.LAUNCHES)
         twins = dict(build.TWIN_CALLS)
+        peak_bytes = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()
         server.server_close()
@@ -814,6 +838,9 @@ def check_served_path(bp, dev, label: str, requests: int) -> dict:
           "latency_ms": latency, "latency_split": split,
           "successors_ms": successors_ms,
           "candidates": len(bp.candidates),
+          "scenes_rendered": [r["stats"]["scenes_rendered"]
+                              for r in responses],
+          "peak_memory_bytes": peak_bytes,
           "detection_error_mm": errors_mm, "launches": launches,
           "twin_calls": twins,
           "jax_package_imported": sorted(
@@ -1460,7 +1487,7 @@ def check_tree_occlusion(scene, succ) -> None:
     poses = np.stack([env.pose_to_camera(s) for s in cands])
     ids = np.asarray([s.id for s in cands], np.int64)
     labels = np.zeros(len(cands), np.int64)
-    totals = env._observed_totals(cands, labels)
+    totals = env._observed_totals(cands, labels, env._observed)
     rb = env._render_bank
     args = (env._tensor(poses, torch.float32), env._tensor(ids),
             env._tensor(labels), env._tensor(totals, torch.float32))
@@ -1607,6 +1634,7 @@ def check_table_served(scene, dev, mode: str, requests: int) -> dict:
                     score_ms / max(1, responses[-1]["stats"]["expands"]))})
         launches = dict(build.LAUNCHES)
         twins = dict(build.TWIN_CALLS)
+        peak_bytes = torch.cuda.max_memory_allocated()
     finally:
         server.shutdown()
         server.server_close()
@@ -1723,6 +1751,261 @@ def check_table_cli(scene, mode: str, backend: str) -> dict:
           "launches": launches, "twin_calls": twins})
     require(sum(twins.values()) == 0, f"cli {mode}: twins ran: {twins}")
     return launches
+
+
+# The scorer and env branches (section 8 of main).
+FAST_CASE = "fast profile batch"
+COMPOSED_CASE = "composed colour batch"
+FAST_FIELDS = dict(icp_source="model", icp_stagnation_streak=5,
+                   icp_crop_targets=128)
+# Section 8's batches by label, for section 9's profiles.
+BRANCH_BATCHES: dict = {}
+
+
+def check_fast(dev) -> tuple[dict, dict]:
+    """EnvConfig.fast_profile() on the depth ROI batch: the fused ICP at the
+    model-source inputs (the bank's 256 surface samples per pose, a crop of
+    128 targets, streak 5) against its twin, one raster launch per batch
+    (after ICP), the slice, and one served request. Returns the ICP's
+    kernel result and the served launches."""
+    bp = problem(dev, env_overrides=FAST_FIELDS)
+    require(bp.env.env == bp.env.env.fast_profile(),
+            "the fast batch runs the speed profile")
+    BRANCH_BATCHES[FAST_CASE] = bp
+    res, counts = check_kernels(bp, DEPTH, FAST_CASE, only=("icp_fused",))
+    src, tgt = CALLS["icp_fused", FAST_CASE][0][0], \
+        CALLS["icp_fused", FAST_CASE][0][2]
+    require(src.shape[1] == 256 and tgt.shape[1] == 128,
+            f"model-source ICP shapes {list(src.shape)} {list(tgt.shape)}")
+    require(counts == {"raster_direct": 1, "icp_fused": 1, "cost_fused": 1},
+            f"fast batch launches {counts}")
+    check_slice(bp, "fast profile")
+    served = check_served_path(bp, dev, "fast profile", 1)
+    require(all(served.get(n, 0) > 0 for n in DEPTH)
+            and served.get("nn1_batch", 0) == 0,
+            f"fast profile served launches {served}")
+    return res["icp_fused"], served
+
+
+def check_render_cost(dev) -> dict:
+    """cost_cloud="render" on the colour ROI path: two raster launches per
+    batch, and the tri-id colour cost reads the face ids of the re-render at
+    the adjusted poses. Returns the batch's launches."""
+    bp = problem(dev, use_color=True, env_overrides={"cost_cloud": "render"})
+    label = "render-cost colour ROI batch"
+    BRANCH_BATCHES[label] = bp
+    _, counts = check_kernels(
+        bp, ("raster_direct", "icp_fused", "cost_fused_color_tri"), label,
+        only=("cost_fused_color_tri",))
+    require(counts == {"raster_direct": 2, "icp_fused": 1,
+                       "cost_fused_color_tri": 1}, f"{label} launches {counts}")
+    out = bp.score()
+    verts, colors, valid, _, ids, labels, _, proj, scene = bp.args
+    rerender, _ = scorer._render_and_cloud(
+        verts, colors, valid, out.adjusted_poses, ids, proj, scene, labels,
+        bp.cfg, bp.env._render_bank[3])
+    tri = CALLS["cost_fused_color_tri", label][0][2]
+    p = rerender.tri_id[0].numel()
+    require(torch.equal(tri[:, :p], rerender.tri_id.reshape(len(ids), p)),
+            "the colour cost reads the re-render's face ids")
+    require(bool((tri[:, p:] == -1).all()), "no explain-only points")
+    check_slice(bp, "render cost, colour ROI")
+    return counts
+
+
+def check_coarse(dev) -> dict:
+    """icp_render_scale=2 on the depth ROI batch: the pre-ICP raster at
+    stride 16 over 16x16 (held against its twin there), then the re-render
+    at stride 8 over 32x32. Returns the batch's launches."""
+    bp = problem(dev, env_overrides={"icp_render_scale": 2})
+    label = "coarse batch"
+    BRANCH_BATCHES[label] = bp
+    _, counts = check_kernels(bp, DEPTH, label, only=("raster_direct",))
+    kw = CALLS["raster_direct", label][1]
+    require(kw["stride"] == 16 and tuple(kw["roi_shape"]) == (16, 16),
+            f"coarse raster at stride {kw['stride']}, {kw['roi_shape']}")
+    require(counts == {"raster_direct": 2, "icp_fused": 1, "cost_fused": 1},
+            f"{label} launches {counts}")
+    check_slice(bp, "coarse")
+    return counts
+
+
+def check_pose_crop(dev) -> dict:
+    """icp_crop_share="pose" with the spread crop of 128 targets: the fused
+    ICP at those inputs against its twin, and the slice."""
+    bp = problem(dev, env_overrides=dict(
+        icp_crop_share="pose", icp_crop_mode="spread", icp_crop_targets=128))
+    label = "pose-crop batch"
+    _, counts = check_kernels(bp, DEPTH, label, only=("icp_fused",))
+    require(CALLS["icp_fused", label][0][2].shape[1] == 128,
+            "pose crop of 128 targets")
+    check_slice(bp, "pose crop, spread")
+    return counts
+
+
+def check_projective(dev) -> dict:
+    """icp_mode="projective" on the depth ROI batch: no ICP kernel (the
+    association reads the organised observed map), the slice, and the
+    translation error against the ground truth before and after ICP on the
+    visible objects' poses: the median no worse after. (A few candidates
+    diverge under projective association, in the JAX package alike, so the
+    mean is printed, not held.)"""
+    bp = problem(dev, icp_mode="projective")
+    label = "projective batch"
+    BRANCH_BATCHES[label] = bp
+    _, counts = check_kernels(bp, ("raster_direct", "cost_fused"), label,
+                              only=())
+    check_slice(bp, "projective")
+    out = bp.score()
+    env = bp.env
+    gt_t = torch.as_tensor(np.stack([env.pose_to_camera(g)[:3, 3]
+                                     for g in bp.gt]), device=dev)
+    labels = bp.args[5]
+    target = gt_t[labels]
+    before = (bp.args[3][:, :3, 3] - target).norm(dim=1)
+    after = (out.adjusted_poses[:, :3, 3] - target).norm(dim=1)
+    errors = {}
+    for i, count in enumerate(env._observed.seg_count.tolist()[:3]):
+        m = labels == i
+        errors[f"object {i}"] = {
+            "poses": int(m.sum()), "observed_points": count,
+            "mean_before_m": before[m].mean().item(),
+            "mean_after_m": after[m].mean().item(),
+            "median_before_m": before[m].median().item(),
+            "median_after_m": after[m].median().item()}
+    visible = env._observed.seg_count[labels] > 0
+    med_before = before[visible].median().item()
+    med_after = after[visible].median().item()
+    emit({"phase": "projective", "launches": counts,
+          "translation_error": errors,
+          "visible_median_m": {"before_icp": med_before,
+                               "after_icp": med_after},
+          "mean_m": {"before_icp": before.mean().item(),
+                     "after_icp": after.mean().item()}})
+    require(med_after <= med_before,
+            f"projective ICP median error {med_after} > {med_before}")
+    return counts
+
+
+def check_composed(color_full) -> tuple[dict, dict]:
+    """Cost type 3 without the face Lab table on the colour full-frame
+    batch: the composed cost, whose 1-NN kernel runs at N = 2048, P = the
+    full-frame cap plus 256 explain-only samples, S = 256 (held against its
+    twin, timed beside torch.cdist), and the slice."""
+    bp = dataclasses.replace(color_full, use_lab=False)
+    res, counts = check_kernels(
+        bp, ("raster_direct", "icp_fused", "nn1_batch"), COMPOSED_CASE,
+        only=("nn1_batch",))
+    query, ref = CALLS["nn1_batch", COMPOSED_CASE][0][:3:2]
+    require(tuple(query.shape) == (N_POSES, 1024 + 256, 3)
+            and ref.shape[1] == 256,
+            f"composed 1-NN shapes {list(query.shape)} {list(ref.shape)}")
+    require(counts == {"raster_direct": 1, "icp_fused": 1, "nn1_batch": 1},
+            f"{COMPOSED_CASE} launches {counts}")
+    check_slice(bp, "composed colour")
+    return res["nn1_batch"], counts
+
+
+def check_fine(dev) -> dict:
+    """fine_stride=4 on the depth ROI batch: set_input's time and peak
+    device memory with and without the fine scene, the fine re-score batch
+    (stride 4, ROI 64x64, P = 4096; no ICP) against its twins and as a
+    slice, and one served request. Returns the served launches."""
+    bp = problem(dev, env_overrides={"fine_stride": 4})
+    env = bp.env
+    rin = env._input
+    timings = {}
+    for fine in (0, 4):
+        env.env = dataclasses.replace(env.env, fine_stride=fine)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        env.set_input(rin)
+        sync()
+        timings[fine] = ((time.perf_counter() - t0) * 1e3,
+                         torch.cuda.max_memory_allocated() - before)
+    scene = env._scene_fine
+    emit({"phase": "fine_scene", "set_input_ms": timings[4][0],
+          "set_input_ms_without_fine": timings[0][0],
+          "set_input_peak_bytes": timings[4][1],
+          "set_input_peak_bytes_without_fine": timings[0][1],
+          "fine_seg_shape": list(scene.seg_xyz.shape),
+          "fine_observed_points": int(env._observed_fine.count)})
+    cfg = env._scorer_config(do_icp=False, stride=4)
+    require(cfg.roi_shape == (64, 64) and cfg.max_points_per_pose == 4096,
+            f"fine config {cfg.roi_shape} {cfg.max_points_per_pose}")
+    labels = bp.args[5]
+    totals = env._observed_fine.seg_count.float()[labels]
+    fine_bp = dataclasses.replace(
+        bp, args=(*bp.args[:6], totals, bp.args[7], scene), cfg=cfg)
+    label = "fine re-score batch"
+    check_kernels(fine_bp, ("raster_direct", "cost_fused"), label)
+    require(CALLS["cost_fused", label][0][0].shape[1] == 4096,
+            "fine cost at P = 4096")
+    check_slice(fine_bp, "fine re-score")
+    served = check_served_path(bp, dev, "fine stride", 1)
+    require(served == {"raster_direct": 2, "icp_fused": 1, "cost_fused": 2},
+            f"fine stride served launches {served}")
+    return served
+
+
+def check_refine(dev) -> dict:
+    """pose_refinement_rounds=1 at the default 12 axes on the depth ROI
+    batch: one served request (both objects within 20 mm) and the poses it
+    scored in the sweep and in the round. Returns the served launches."""
+    bp = problem(dev, env_overrides={"pose_refinement_rounds": 1})
+    responses: list = []
+    served = check_served_path(bp, dev, "refine", 1, responses)
+    env = bp.env
+    sweep = len(env.generate_successors_6dof(
+        {f"blob{i}": np.asarray([[c.pose.x, c.pose.y, c.pose.z,
+                                  *c.pose.quaternion()]
+                                 for c in bp.candidates if c.id == i])
+         for i in range(3)}))
+    scored = responses[-1]["stats"]["scenes_rendered"]
+    winners = len(responses[-1]["detections"])
+    per_round = 2 * env.env.pose_refinement_axes * winners
+    emit({"phase": "refine", "rounds": env.env.pose_refinement_rounds,
+          "axes": env.env.pose_refinement_axes, "winners": winners,
+          "sweep_poses": sweep, "scored_poses": scored,
+          "round_poses": scored - sweep, "launches": served})
+    require(scored - sweep == per_round,
+            f"refinement scored {scored - sweep} != {per_round}")
+    require(all(served.get(n, 0) == 2 for n in DEPTH),
+            f"refine served launches {served}")
+    return served
+
+
+def check_likelihood(bp) -> None:
+    """particle_log_likelihood in both modes on the bench batch's 2048
+    full-frame renders (80x60 at stride 8) against its source depth: the
+    card against the CPU within 1e-4 relative, the same best particle."""
+    verts, colors, valid, poses, ids, _, _, proj, scene = bp.args
+    cfg = bp.cfg
+    out = rasterizer.render_pose_batch(
+        verts, colors, valid, poses, ids, proj, width=cfg.width,
+        height=cfg.height, stride=cfg.stride,
+        bank_backface=bp.env._render_bank[3])
+    rend = likelihood.depth_cm_to_m(out.depth)
+    obs = likelihood.depth_cm_to_m(scene.source_depth)
+    rows = {}
+    for mode in ("gaussian_mixture", "disparity_truncated"):
+        gpu = likelihood.particle_log_likelihood(obs, rend, mode=mode)
+        sync()
+        cpu = likelihood.particle_log_likelihood(obs.cpu(), rend.cpu(),
+                                                 mode=mode)
+        rel = ((gpu.cpu() - cpu).abs()
+               / cpu.abs().clamp(min=1e-30)).max().item()
+        best = int(likelihood.best_particle(gpu))
+        rows[mode] = {"max_rel_err": rel, "best_particle": best,
+                      "ms": time_ms(lambda: likelihood.particle_log_likelihood(
+                          obs, rend, mode=mode))}
+        require(rel <= 1e-4, f"likelihood {mode}: rel err {rel}")
+        require(best == int(likelihood.best_particle(cpu)),
+                f"likelihood {mode}: best particle")
+    emit({"phase": "likelihood", "particles": int(rend.shape[0]),
+          "pixels": int(rend[0].numel()), **rows})
 
 
 def problem(dev, **kw):
@@ -1935,11 +2218,29 @@ def main() -> int:
             f"cli tree launches {cli_tree}")
     report_table_defaults(dev)
 
-    # 8. Where a batch's time goes on the device, last: the profiler's CUPTI
+    # 8. The scorer's and env's other branches on the bench scene (depth
+    # ROI batch unless named): the speed profile (model-source ICP), the
+    # re-render cost (colour ROI), the coarse pre-ICP pass, the per-pose
+    # spread crop, projective ICP, the composed colour cost (colour full
+    # frame without the face Lab table), the fine-stride re-score, a pose
+    # refinement round, and the particle log-likelihood.
+    fast_icp, fast_served = check_fast(dev)
+    check_render_cost(dev)
+    check_coarse(dev)
+    check_pose_crop(dev)
+    check_projective(dev)
+    composed_nn1, composed_counts = check_composed(color_full)
+    check_fine(dev)
+    check_refine(dev)
+    check_likelihood(depth)
+
+    # 9. Where a batch's time goes on the device, last: the profiler's CUPTI
     # session is the one process-wide state no other phase changes.
     profile_batch(depth, "depth ROI batch")
     profile_batch(noisy, "noisy batch")
     profile_batch(gicp, "gicp batch")
+    for label, bp in BRANCH_BATCHES.items():
+        profile_batch(bp, label)
     require(not any(m.split(".")[0] in ("jax", "perception_tpu", "benchmarks")
                     for m in sys.modules),
             "jax or the JAX package was imported")
@@ -1963,7 +2264,11 @@ def main() -> int:
               "p2p" if name == "icp_fused" else None)
         for name in KERNELS] + [
         entry("icp_fused", icp_results[m], icp_launches[m], m)
-        for m in ICP_MODES]}), flush=True)
+        for m in ICP_MODES] + [
+        entry("icp_fused", fast_icp, fast_served["icp_fused"],
+              "p2p, model source"),
+        entry("nn1_batch", composed_nn1, composed_counts["nn1_batch"],
+              "composed cost")]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -63,13 +63,18 @@ def bank_tensors(bank: ModelBank, device: str | torch.device = "cpu"
 
 def scene_from_jax(scene, device: str | torch.device = "cpu") -> ObservedScene:
     """A JAX ObservedScene -> the port's ObservedScene (the fields the port's
-    scorer reads, the segment colours and their Lab included)."""
+    scorer reads: the segment colours and their Lab, and the organised
+    maps, included)."""
     return ObservedScene(
         seg_xyz=tensor(scene.seg_xyz, device, torch.float32),
         seg_rgb=tensor(scene.seg_rgb, device, torch.float32),
         seg_lab=tensor(scene.seg_lab, device, torch.float32),
         seg_valid=tensor(scene.seg_valid, device, torch.bool),
         seg_normals=tensor(scene.seg_normals, device, torch.float32),
+        map_xyz=tensor(scene.map_xyz, device, torch.float32),
+        map_normals=tensor(scene.map_normals, device, torch.float32),
+        map_valid=tensor(scene.map_valid, device, torch.bool),
+        map_label=tensor(scene.map_label, device, torch.int32),
         source_depth=tensor(scene.source_depth, device, torch.int32),
         source_label=tensor(scene.source_label, device, torch.int32))
 

@@ -5,9 +5,10 @@
 The port's own copy of `perception_tpu/core/config.py`: the same fields with
 the same defaults, so a configuration means the same thing to both packages
 (the JAX file's field comments give the evidence behind each default). The
-YAML file reader waits for the CLI slice; `from_yaml_dict` takes an already
-parsed mapping. Of the JAX EnvConfig's two profiles the real-sensor one,
-`noisy_profile`, is copied; the speed profile waits for icp_source="model".
+file reader is the CLI's `load_config` (JSON, or YAML where the module is
+installed); `from_yaml_dict` takes an already parsed mapping. Both of the
+JAX EnvConfig's profiles are copied: the speed profile `fast_profile` and
+the real-sensor profile `noisy_profile`.
 """
 
 from __future__ import annotations
@@ -152,6 +153,15 @@ class EnvConfig:
     def from_yaml_dict(cls, d: Mapping[str, Any]) -> "EnvConfig":
         fields = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in fields})
+
+    def fast_profile(self) -> "EnvConfig":
+        """The documented speed profile: the render-free ICP source (surface
+        samples behind a facing-cosine mask), a stagnation streak of 5 and a
+        128-target crop (the JAX package measured each a small, not
+        significant AUC loss, for about +25% throughput together)."""
+        return dataclasses.replace(
+            self, icp_source="model", icp_stagnation_streak=5,
+            icp_crop_targets=128)
 
     def noisy_profile(self) -> "EnvConfig":
         """The documented real-sensor profile: the exact-covariance fused

@@ -51,6 +51,9 @@ class BenchProblem:
     cfg: ScorerConfig
     sensor: str = "none"          # eval.sensor_model name of the observation
     seed: int = 0
+    use_lab: bool = True          # pass the env's face Lab table (colour
+                                  # cost: the fused kernels; without it the
+                                  # composed cost)
 
     def observe(self, env: PerceptionEnv) -> None:
         """Give `env` this problem's observation: the ground truth rendered,
@@ -75,7 +78,7 @@ class BenchProblem:
             proj, scene, cfg or self.cfg, bank_backface=env._render_bank[3],
             bank_icp_samples=env._bank_icp_samples,
             bank_icp_normals=env._bank_icp_normals,
-            bank_tri_lab=env._render_bank_lab)
+            bank_tri_lab=env._render_bank_lab if self.use_lab else None)
 
     def first_call(self, module, attr: str,
                    cfg: ScorerConfig | None = None) -> tuple:
@@ -165,6 +168,7 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
                         use_color: bool = False, roi_size: int = 32,
                         icp_mode: str = "auto", sensor: str = "none",
                         kernel_backend: str = "auto",
+                        env_overrides: dict | None = None,
                         device: str | torch.device = "cuda") -> BenchProblem:
     """model_kind: "blob" (convex hulls) or "bumpy1024" (~t_cap-triangle
     non-convex models), as BENCH_MODELS selects for the JAX version;
@@ -173,7 +177,8 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
     (PT_ICP_MODE; "fused_d2d_exact" is the real-sensor profile); sensor: the
     eval.sensor_model degrading the observation (PT_SENSOR, e.g. "kinect");
     kernel_backend: the EnvConfig raster backend (the JAX version's is
-    "auto")."""
+    "auto"); env_overrides: further EnvConfig fields (the JAX version's
+    PT_* variables)."""
     rng = np.random.default_rng(seed)
     cam = CameraIntrinsics(fx=1066.778, fy=1067.487, cx=312.9869,
                            cy=241.3109, width=width, height=height)
@@ -189,7 +194,7 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
                         max_observed_points=8192, max_points_per_label=1024,
                         max_labels=4, roi_size=roi_size,
                         kernel_backend=kernel_backend,
-                        icp_mode=icp_mode)
+                        icp_mode=icp_mode, **(env_overrides or {}))
     env = PerceptionEnv(bank, cam, perch, env_cfg, device=device)
 
     gt = []

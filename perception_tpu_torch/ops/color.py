@@ -5,9 +5,10 @@ compute_costs.cuh:57-159 `rgb2lab` / `color_distance`, branch structure
 included).
 
 `rgb_to_lab` builds Lab tables (the bank's face colours once per env, the
-observed segment colours once per frame). It runs in float64 with numpy on
-the host and rounds once to float32, so the card and the CPU hold the same
-Lab: float32 `** 2.4` and `cbrt` differ between devices.
+observed segment colours once per frame) and converts the composed cost's
+rendered colours per point. It runs in float64 on the input's device and
+rounds once to float32, so the card and the CPU hold the same Lab: float32
+`** 2.4` and `cbrt` differ between devices.
 
 `ciede2000_components` is written in the order and with the roundings of the
 colour cost kernels (`csrc/cost_fused_color.cu`), so their PyTorch twins
@@ -50,25 +51,26 @@ _ATAN_COEFFS = tuple(_f32(c) for c in (
 
 def rgb_to_lab(rgb) -> torch.Tensor:
     """sRGB (0..255, [..., 3]) -> CIELAB, D65, float32, on the input's
-    device (a numpy input gives a CPU tensor). Computed in float64 on the
-    host and rounded once."""
-    device = rgb.device if isinstance(rgb, torch.Tensor) else "cpu"
-    if isinstance(rgb, torch.Tensor):
-        rgb = rgb.detach().cpu().numpy()
-    c = np.asarray(rgb, np.float64) / 255.0
-    c = np.where(c > 0.04045, ((c + 0.055) / 1.055) ** 2.4, c / 12.92) * 100.0
+    device (a numpy input gives a CPU tensor). Computed in float64 and
+    rounded once; the cube root as a power of 1/3."""
+    if not isinstance(rgb, torch.Tensor):
+        rgb = torch.as_tensor(np.asarray(rgb))
+    c = rgb.to(torch.float64) / 255.0
+    c = torch.where(c > 0.04045, ((c + 0.055) / 1.055) ** 2.4,
+                    c / 12.92) * 100.0
     r, g, b = c[..., 0], c[..., 1], c[..., 2]
     x = (r * 0.4124564 + g * 0.3575761 + b * 0.1804375) / 95.047
     y = (r * 0.2126729 + g * 0.7151522 + b * 0.0721750) / 100.0
     z = (r * 0.0193339 + g * 0.1191920 + b * 0.9503041) / 108.883
 
     def f(t):
-        return np.where(t > 0.008856, np.cbrt(t), 7.787 * t + 16.0 / 116.0)
+        return torch.where(t > 0.008856, t ** (1.0 / 3.0),
+                           7.787 * t + 16.0 / 116.0)
 
     fx, fy, fz = f(x), f(y), f(z)
-    lab = np.stack([116.0 * fy - 16.0, 500.0 * (fx - fy), 200.0 * (fy - fz)],
-                   axis=-1)
-    return torch.as_tensor(lab.astype(np.float32), device=device)
+    lab = torch.stack([116.0 * fy - 16.0, 500.0 * (fx - fy),
+                       200.0 * (fy - fz)], dim=-1)
+    return lab.to(torch.float32)
 
 
 def _div(x: torch.Tensor, v) -> torch.Tensor:

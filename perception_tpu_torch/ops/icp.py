@@ -2,13 +2,14 @@
 
 Counterpart of `perception_tpu/ops/icp.py`: `smallest_eigenvector_3x3`,
 `cloud_normals` (k-NN covariance normals, oriented towards the camera),
-`crop_targets` in mode "near", the SE(3) helpers, and the two composed
-batched refiners, `icp_point_to_plane_batch` ("nn") and `icp_gicp_batch`
-("gicp"). Both associate with `knn.nn1_batch` (the 1-NN kernel on the card)
-once per Gauss-Newton iteration, sum the 6x6 normal equations with PyTorch
-reductions, and stop once every pose has converged: one host read of the
-converged flags per iteration. `icp_projective_batch` needs the organised
-observed-map tensors and is not ported.
+`crop_targets` in modes "near" and "spread", the SE(3) helpers, the two
+composed batched refiners, `icp_point_to_plane_batch` ("nn") and
+`icp_gicp_batch` ("gicp"), and `icp_projective_batch` ("projective").
+The first two associate with `knn.nn1_batch` (the 1-NN kernel on the card)
+once per Gauss-Newton iteration; the projective refiner associates by
+projecting each source point into the organised observed map. All three sum
+the 6x6 normal equations with PyTorch reductions and stop once every pose
+has converged: one host read of the converged flags per iteration.
 
 The normals' covariance, mean and power iteration are written as
 fixed-order element-wise sums (no reductions, matmuls or norms whose order
@@ -23,7 +24,7 @@ import torch
 
 from perception_tpu_torch.ops.icp_fused import cholesky_solve_6x6
 from perception_tpu_torch.ops.knn import knn_self, nn1_batch
-from perception_tpu_torch.ops.numerics import sqrt
+from perception_tpu_torch.ops.numerics import div, sqrt
 
 
 def _ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -93,18 +94,31 @@ def cloud_normals(xyz: torch.Tensor, valid: torch.Tensor,
 def crop_targets(tgt_xyz: torch.Tensor, tgt_valid: torch.Tensor,
                  centers: torch.Tensor, k: int,
                  mode: str = "near") -> torch.Tensor:
-    """Indices [N, k] of the k targets nearest each centre, nearest first,
-    invalid targets last. The selection is exact (a stable sort, so equal
-    distances keep the lower index, as lax.top_k does on the CPU)."""
-    if mode != "near":
-        raise NotImplementedError(
-            f"crop mode {mode!r} is not ported; only 'near' is")
+    """Indices [N, k] of a target crop around each centre, invalid targets
+    last. "near": the k nearest, nearest first. "spread": over the 2k
+    nearest, the even positions of their valid prefix first (half density
+    over the 2k extent), then the odd ones, then the invalid tail. The
+    selection is exact (a stable sort, so equal distances keep the lower
+    index, as lax.top_k does on the CPU)."""
     diff = tgt_xyz - centers[:, None, :]
     d = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
          + diff[..., 2] * diff[..., 2])
     d = torch.where(tgt_valid, d, float("inf"))
+    s = tgt_xyz.shape[1]
     idx = torch.sort(d, dim=1, stable=True).indices
-    return idx[:, :min(k, tgt_xyz.shape[1])]
+    if mode == "near" or k >= s:
+        return idx[:, :min(k, s)]
+    if mode != "spread":
+        raise ValueError(f"unknown crop mode {mode!r}")
+    k2 = min(2 * k, s)
+    idx = idx[:, :k2]
+    v = torch.gather(tgt_valid, 1, idx).sum(dim=1, keepdim=True)
+    i = torch.arange(k, device=idx.device)[None, :]
+    nhalf = torch.div(v + 1, 2, rounding_mode="floor")
+    pos = torch.where(i < nhalf, 2 * i, 2 * (i - nhalf) + 1)
+    pos = torch.where(i < v, pos, i)
+    pos = torch.clamp(pos, max=k2 - 1)
+    return torch.gather(idx, 1, pos)
 
 
 def _hat(v: torch.Tensor) -> torch.Tensor:
@@ -147,23 +161,36 @@ def solve_spd_6x6(h: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                        dim=1)
 
 
-def _gn_step(cur, q, nrm, w, converged, damping=1e-4):
-    """One damped point-to-plane Gauss-Newton update (the JAX _gn_step with
-    pp_weight=0): diag-mean scaled damping, identity system when fewer than 6
-    correspondences. Returns (xi [N, 6], count [N], e [N, P], ok [N])."""
+def _gn_step(cur, q, nrm, w, converged, damping=1e-4, pp_weight=0.0):
+    """One damped Gauss-Newton update, as the JAX _gn_step: point-to-plane
+    residuals plus, with pp_weight > 0, that weight of the point-to-point
+    term; diag-mean scaled damping, identity system when fewer than 6
+    correspondences. The normal equations are summed in float64 and rounded
+    once, so the CPU and the card hold the same system. Returns
+    (xi [N, 6], count [N], e [N, P], ok [N])."""
     d = cur - q
     e = nrm[..., 0] * d[..., 0] + nrm[..., 1] * d[..., 1] \
         + nrm[..., 2] * d[..., 2]
     j_rot = torch.linalg.cross(cur, nrm, dim=-1)
-    jac = torch.cat([j_rot, nrm], dim=-1)                  # [N, P, 6]
-    jw = jac * w[..., None]
+    jac = torch.cat([j_rot, nrm], dim=-1).double()         # [N, P, 6]
+    w64 = w.double()
+    jw = jac * w64[..., None]
     h = torch.bmm(jw.transpose(1, 2), jac)
-    g = -(jw * e[..., None]).sum(dim=1)
+    g = -(jw * e.double()[..., None]).sum(dim=1)
+    if pp_weight > 0:
+        # Point-to-point: r = cur - q, dr/domega = -[cur]x, dr/du = I.
+        cx = _hat(cur.double())                            # [N, P, 3, 3]
+        eye3 = torch.eye(3, dtype=torch.float64, device=cur.device)
+        j_pp = torch.cat([-cx, eye3.expand(cx.shape)], dim=-1)  # [N, P, 3, 6]
+        h = h + pp_weight * torch.einsum("npki,npkj,np->nij", j_pp, j_pp, w64)
+        g = g - pp_weight * torch.einsum("npki,npk,np->ni", j_pp, d.double(),
+                                         w64)
+    h, g = h.float(), g.float()
     count = w.sum(dim=1)
     ok = count >= 6
-    diag = torch.diagonal(h, dim1=1, dim2=2)
+    diag_mean = torch.diagonal(h, dim1=1, dim2=2).double().mean(dim=1).float()
     eye = torch.eye(6, dtype=h.dtype, device=h.device)
-    h = h + (damping * diag.mean(dim=1)[:, None, None] + 1e-9) * eye
+    h = h + (damping * diag_mean[:, None, None] + 1e-9) * eye
     h = torch.where(ok[:, None, None], h, eye)
     xi = solve_spd_6x6(h, g)
     xi = torch.where((ok & ~converged)[:, None], xi, 0.0)
@@ -256,10 +283,81 @@ def icp_point_to_plane_batch(
         delta = torch.bmm(se3_exp(xi), delta)
         prev_fit, prev_rmse = fitness, rmse
         fitness = count / n_valid
-        rmse = sqrt((e * e * w).sum(dim=1) / torch.clamp(count, min=1.0))
+        rmse = sqrt((e * e * w).double().sum(dim=1).float()
+                    / torch.clamp(count, min=1.0))
         converged, iters, streak = _converge(
             k, xi, fitness, rmse, prev_fit, prev_rmse, streak, ok, converged,
             iters, rotation_epsilon, transformation_epsilon)
+        if bool(converged.all()):
+            break
+    return ICPResult(delta=delta, fitness=fitness, rmse=rmse, iterations=iters)
+
+
+def icp_projective_batch(
+    src_xyz: torch.Tensor,      # [N, P, 3] rendered cloud per pose (camera)
+    src_valid: torch.Tensor,    # [N, P]
+    obs_xyz: torch.Tensor,      # [Npix, 3] organised observed map
+    obs_normals: torch.Tensor,  # [Npix, 3]
+    obs_valid: torch.Tensor,    # [Npix]
+    obs_label: torch.Tensor,    # [Npix] int 0-based (-1 invalid)
+    pose_labels: torch.Tensor,  # [N] int
+    *,
+    fx: float, fy: float, cx: float, cy: float,
+    width: int, height: int, stride: int,
+    max_iterations: int = 30,
+    max_correspondence: float = 0.05,
+    rotation_epsilon: float = 2e-3,
+    transformation_epsilon: float = 5e-4,
+    damping: float = 1e-4,
+    use_labels: bool = True,
+) -> ICPResult:
+    """Point-to-plane Gauss-Newton (with a 0.1-weighted point-to-point term)
+    under projective association: each transformed source point reads the
+    observed point and normal at the strided pixel it projects to
+    (round(u / stride), half to even as jnp.round), gated by validity,
+    depth, its pose's segment label (use_labels) and max_correspondence.
+    max_iterations steps as the JAX scan takes them; a converged pose stops
+    moving, so the loop ends once every pose has converged."""
+    n = src_xyz.shape[0]
+    dev = src_xyz.device
+    w_s, h_s = width // stride, height // stride
+    max_corr_sq = max_correspondence * max_correspondence
+    labels = pose_labels.long()[:, None]
+    delta = torch.eye(4, dtype=torch.float32, device=dev).repeat(n, 1, 1)
+    converged = torch.zeros((n,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((n,), dtype=torch.int32, device=dev)
+    fitness = torch.zeros((n,), dtype=torch.float32, device=dev)
+    rmse = torch.zeros((n,), dtype=torch.float32, device=dev)
+    n_valid = torch.clamp(src_valid.sum(dim=1).to(torch.float32), min=1.0)
+    for _ in range(max_iterations):
+        cur = _transform(delta, src_xyz)
+        z = torch.clamp(cur[..., 2], min=1e-6)
+        u = fx * cur[..., 0] / z + cx
+        v = fy * cur[..., 1] / z + cy
+        iu = torch.clamp(torch.round(div(u, stride)).to(torch.int32), 0,
+                         w_s - 1)
+        iv = torch.clamp(torch.round(div(v, stride)).to(torch.int32), 0,
+                         h_s - 1)
+        pix = (iv * w_s + iu).long()                         # [N, P]
+        q = obs_xyz[pix]
+        nrm = obs_normals[pix]
+        ok = src_valid & obs_valid[pix] & (cur[..., 2] > 1e-4)
+        if use_labels:
+            ok = ok & (obs_label[pix].long() == labels)
+        d = cur - q
+        dist_sq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+            + d[..., 2] * d[..., 2]
+        w = (ok & (dist_sq <= max_corr_sq)).to(torch.float32)
+        xi, count, e, okp = _gn_step(cur, q, nrm, w, converged, damping,
+                                     pp_weight=0.1)
+        delta = torch.bmm(se3_exp(xi), delta)
+        newly = ((_norm3(xi[:, :3])[:, 0] < rotation_epsilon)
+                 & (_norm3(xi[:, 3:])[:, 0] < transformation_epsilon))
+        iters = iters + (~converged).to(torch.int32)
+        converged = converged | newly | ~okp
+        rmse = sqrt((e * e * w).double().sum(dim=1).float()
+                    / torch.clamp(count, min=1.0))
+        fitness = count / n_valid
         if bool(converged.all()):
             break
     return ICPResult(delta=delta, fitness=fitness, rmse=rmse, iterations=iters)

@@ -75,19 +75,43 @@ def nn1_batch_twin(query: torch.Tensor, ref4: torch.Tensor
     return dist, torch.clamp(win, max=ref4.shape[1] - 1).to(torch.int32)
 
 
+# Distance entries of one row block of knn_self: bounds its memory (the
+# block's [N, rows, P] distances, their differences and keys) whatever P is.
+KNN_BLOCK = 1 << 24
+_KEY_MAX = torch.iinfo(torch.int64).max
+
+
 def knn_self(xyz: torch.Tensor, valid: torch.Tensor,
              k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """k-NN of each point within its own cloud, self excluded.
 
     xyz [N, P, 3], valid [N, P] -> (dists [N, P, k], idx [N, P, k] int32),
-    nearest first; invalid neighbours sort last with distance inf. The
-    selection is a stable sort, so equal distances keep the lower index, as
-    lax.top_k does."""
-    p = xyz.shape[1]
-    diff = xyz[:, :, None, :] - xyz[:, None, :, :]
-    d = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
-         + diff[..., 2] * diff[..., 2])
-    eye = torch.eye(p, dtype=torch.bool, device=xyz.device)
-    d = torch.where(valid[:, None, :] & ~eye, d, float("inf"))
-    dists, idx = torch.sort(d, dim=-1, stable=True)
-    return dists[..., :k], idx[..., :k].to(torch.int32)
+    nearest first; invalid neighbours sort last with distance inf. Equal
+    distances keep the lower index first, as lax.top_k does, so the result
+    is a stable sort's first k. The distances are built in row blocks of at
+    most KNN_BLOCK entries, and each block selects its k smallest by k
+    passes of a minimum over unique keys: a non-negative float32's bits
+    order like its value, and the low 32 bits hold the index."""
+    n, p, _ = xyz.shape
+    dev = xyz.device
+    dists = torch.empty((n, p, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, p, k), dtype=torch.int32, device=dev)
+    cols = torch.arange(p, device=dev)
+    rows = max(1, KNN_BLOCK // max(n * p, 1))
+    for lo in range(0, p, rows):
+        hi = min(p, lo + rows)
+        diff = xyz[:, lo:hi, None, :] - xyz[:, None, :, :]    # [N, r, P, 3]
+        d = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+             + diff[..., 2] * diff[..., 2])
+        del diff
+        other = cols[lo:hi, None] != cols[None, :]
+        d = torch.where(valid[:, None, :] & other, d, float("inf"))
+        key = (d.contiguous().view(torch.int32).to(torch.int64) << 32) | cols
+        del d
+        for j in range(k):
+            m = key.amin(dim=-1)                                # [N, r]
+            col = m & 0xFFFFFFFF
+            dists[:, lo:hi, j] = (m >> 32).to(torch.int32).view(torch.float32)
+            idx[:, lo:hi, j] = col.to(torch.int32)
+            key.scatter_(-1, col[..., None], _KEY_MAX)
+    return dists, idx

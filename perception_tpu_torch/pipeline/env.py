@@ -12,17 +12,25 @@ in `gpu_batch_size` chunks, cost type 2 / 3 in 6-DoF mode and 0 / 1 in 3-DoF
 mode (the CIEDE2000 colour gate when `PerchConfig.use_color_cost` is set);
 `compute_greedy_poses` takes the per-(model, segment) argmin with the
 |target - source| < 30 filter, or, with `collision_ordering`, the commit
-order of the reference's greedy-ICP baseline. The env runs on the card
+order of the reference's greedy-ICP baseline. With `EnvConfig.fine_stride`
+it first re-scores the best `fine_top_k` candidates per (model, segment)
+(per model in 3-DoF mode) at their refined poses against a second scene
+built at that finer stride; with `pose_refinement_rounds` it re-scores the
+winners under small rotations about fibonacci axes and keeps any that score
+lower; with `PerchConfig.vis_expanded_states` and a `debug_dir` it writes
+the final state's depth and colour renders as PNGs. The env runs on the card
 unless given `device="cpu"`.
 
 `EnvConfig.kernel_backend` picks the scoring raster ("auto" and
 "pallas_direct": the direct kernel; "pallas": the coefficient-table kernel;
-"pallas_bin": the scatter-bin kernel); the observation render of
-`render_composite` always takes the direct kernel, as the JAX env takes its
-default backend there.
+"pallas_bin": the scatter-bin kernel; "xla" raises); the observation
+render of `render_composite` always takes the direct kernel, as the JAX env
+takes its default backend there.
 
-Not ported yet (they raise): `fine_stride`, `pose_refinement_rounds`, the
-"xla" backend, and the debug-image dumps.
+The observed scene of a stride s lies on the (H // s) x (W // s) grid of
+`strided`, also where s does not divide the frame (the JAX env takes every
+s-th pixel of the whole frame there, and its scorer then fails on the
+mismatched shapes).
 """
 
 from __future__ import annotations
@@ -48,7 +56,9 @@ from perception_tpu_torch.core.state import (
     GraphState,
     ObjectState,
 )
+from perception_tpu_torch.eval.sampling import sphere_fibonacci_grid
 from perception_tpu_torch.eval.sensor_model import SensorModel
+from perception_tpu_torch.io.images import write_png
 from perception_tpu_torch.ops.color import rgb_to_lab
 from perception_tpu_torch.ops.cost import (
     COST_TYPE_3DOF_DEPTH,
@@ -65,6 +75,7 @@ from perception_tpu_torch.pipeline.scorer import (
     ScorerConfig,
     score_pose_batch,
 )
+from perception_tpu_torch.utils.debug import save_depth_image
 from perception_tpu_torch.utils.stats import EnvStats
 
 
@@ -100,10 +111,6 @@ class ScoredState:
     adjusted_pose_cam: np.ndarray   # [4, 4] model->camera (post-ICP)
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet")
-
-
 class PerceptionEnv:
     def __init__(self, bank: ModelBank, camera: CameraIntrinsics,
                  perch: PerchConfig | None = None,
@@ -114,12 +121,6 @@ class PerceptionEnv:
         self.perch = perch or PerchConfig()
         self.env = env or EnvConfig(width=camera.width, height=camera.height)
         check_backend(self.env.kernel_backend)
-        if self.env.fine_stride:
-            raise _unported("fine_stride (coarse-to-fine re-scoring)")
-        if self.env.pose_refinement_rounds:
-            raise _unported("pose_refinement_rounds")
-        if self.perch.vis_expanded_states:
-            raise _unported("vis_expanded_states (debug image dumps)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the env runs on the card "
@@ -132,6 +133,10 @@ class PerceptionEnv:
         self._input: RecognitionInput | None = None
         self._scene: ObservedScene | None = None
         self._observed = None
+        self._scene_fine: ObservedScene | None = None
+        self._observed_fine = None
+        # The directory of the vis_expanded_states dumps (None: no dumps).
+        self.debug_dir: str | None = None
         self._world_kdtree: cKDTree | None = None
         self._seg_kdtrees: list[cKDTree | None] = []
         dev = self._tensor
@@ -174,7 +179,11 @@ class PerceptionEnv:
     # ------------------------------------------------------------------
 
     def _build_scene(self, rin: RecognitionInput, stride: int):
+        """The observed scene at a pixel stride; the point capacities grow
+        with the pixel density ((gpu_stride // stride)^2), so a finer
+        stride does not truncate the clouds."""
         cam, env = self.camera, self.env
+        cap_scale = max(1, (int(self.perch.gpu_stride) // stride) ** 2)
         h, w = rin.depth_image.shape
         if (h, w) != (cam.height, cam.width):
             raise ValueError(f"depth image {w}x{h} != camera "
@@ -201,8 +210,8 @@ class PerceptionEnv:
             fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
             width=cam.width, height=cam.height, stride=stride,
             depth_factor=float(rin.depth_factor),
-            max_points=env.max_observed_points,
-            seg_cap=env.max_points_per_label,
+            max_points=env.max_observed_points * cap_scale,
+            seg_cap=env.max_points_per_label * cap_scale,
             num_labels=env.max_labels,
             use_label_filter=six_dof, use_bounds_filter=not six_dof,
             bounds=bounds,
@@ -213,10 +222,39 @@ class PerceptionEnv:
         division = float(rin.depth_factor) / env.gpu_depth_factor
         src = (self.strided(rin.depth_image, stride).astype(np.float64)
                / division)
+        # The organised observed map of the projective ICP: each observed
+        # point, its label and its normal (k-NN over the whole cloud) at its
+        # strided pixel. The normals are computed over the valid points
+        # alone, padded with invalid zero points to more than k: the same
+        # neighbours in the same order (invalid points are never nearer, and
+        # weigh 0), so the same normals as over every cloud slot, for a
+        # fraction of the k-NN work.
+        npix = src.shape[0] * src.shape[1]
+        valid = observed.valid
+        sel = observed.pixel[valid].long()
+        pts = observed.xyz[valid]
+        n_valid = pts.shape[0]
+        pad = max(0, 11 - n_valid)
+        pts = torch.cat([pts, pts.new_zeros((pad, 3))])
+        pts_valid = torch.arange(n_valid + pad, device=self.device) < n_valid
+        whole_normals = cloud_normals(pts[None], pts_valid[None],
+                                      k=10)[0, :n_valid]
+        map_xyz = torch.zeros((npix, 3), dtype=torch.float32,
+                              device=self.device)
+        map_normals = torch.zeros_like(map_xyz)
+        map_valid = torch.zeros((npix,), dtype=torch.bool, device=self.device)
+        map_label = torch.full((npix,), -1, dtype=torch.int32,
+                               device=self.device)
+        map_xyz[sel] = observed.xyz[valid]
+        map_normals[sel] = whole_normals
+        map_valid[sel] = True
+        map_label[sel] = observed.label[valid].to(torch.int32)
         scene = ObservedScene(
             seg_xyz=observed.seg_xyz, seg_rgb=observed.seg_rgb,
             seg_lab=rgb_to_lab(observed.seg_rgb),
             seg_valid=observed.seg_valid, seg_normals=seg_normals,
+            map_xyz=map_xyz, map_normals=map_normals, map_valid=map_valid,
+            map_label=map_label,
             source_depth=dev(src.astype(np.int32), torch.int32),
             source_label=dev(self.strided(label, stride), torch.int32))
         return scene, observed
@@ -236,8 +274,13 @@ class PerceptionEnv:
         self._disc = Discretizer(
             x_min=rin.x_min, x_max=rin.x_max, y_min=rin.y_min,
             y_max=rin.y_max, res=self.env.res, theta_res=self.env.theta_res)
-        self._scene, self._observed = self._build_scene(
-            rin, int(self.perch.gpu_stride))
+        stride = int(self.perch.gpu_stride)
+        self._scene, self._observed = self._build_scene(rin, stride)
+        # The finer-stride scene of the coarse-to-fine re-score.
+        self._scene_fine = self._observed_fine = None
+        if self.env.fine_stride and self.env.fine_stride < stride:
+            self._scene_fine, self._observed_fine = self._build_scene(
+                rin, int(self.env.fine_stride))
         # Host-side world-frame KD-trees for validity checks.
         valid = self._observed.valid.cpu().numpy()
         xyz = self._observed.xyz.cpu().numpy()[valid]
@@ -408,7 +451,11 @@ class PerceptionEnv:
     # Scoring
     # ------------------------------------------------------------------
 
-    def _scorer_config(self, do_icp: bool | None = None) -> ScorerConfig:
+    def _scorer_config(self, do_icp: bool | None = None,
+                       stride: int | None = None) -> ScorerConfig:
+        """The scorer's configuration at `stride` (default gpu_stride): the
+        ROI keeps its extent in pixels of the frame and the cloud cap its
+        share of the strided pixels."""
         cam, perch, env = self.camera, self.perch, self.env
         six_dof = self._input.use_external_pose_list
         if six_dof:
@@ -419,16 +466,18 @@ class PerceptionEnv:
                          else COST_TYPE_3DOF_DEPTH)
         if do_icp is None:
             do_icp = perch.icp_type == 3
-        stride = int(perch.gpu_stride)
+        stride = int(stride or perch.gpu_stride)
         roi = None
         if env.roi_size:
-            roi = (min(env.roi_size, cam.height // stride),
-                   min(env.roi_size, cam.width // stride))
+            scale = int(perch.gpu_stride) // stride
+            roi = (min(env.roi_size * scale, cam.height // stride),
+                   min(env.roi_size * scale, cam.width // stride))
+        cap_scale = max(1, (int(perch.gpu_stride) // stride) ** 2)
         icp_mode = "fused" if env.icp_mode == "auto" else env.icp_mode
         return ScorerConfig(
             width=cam.width, height=cam.height, stride=stride,
             fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
-            max_points_per_pose=env.max_points_per_pose,
+            max_points_per_pose=env.max_points_per_pose * cap_scale,
             cost_type=cost_type,
             sensor_resolution=perch.sensor_resolution,
             color_distance_threshold=perch.color_distance_threshold,
@@ -463,27 +512,39 @@ class PerceptionEnv:
         )
 
     def _observed_totals(self, chunk: Sequence[ObjectState],
-                         labels: np.ndarray) -> np.ndarray:
+                         labels: np.ndarray, observed) -> np.ndarray:
         """[N] float32 observed points each pose is scored against: its
-        segment's count (6-DoF); in 3-DoF mode the points inside the pose's
-        inflated circumscribing cylinder (use_cylinder_observed) or all."""
+        segment's count in `observed` (6-DoF); in 3-DoF mode the points
+        inside the pose's inflated circumscribing cylinder
+        (use_cylinder_observed, over the gpu_stride cloud) or all of
+        `observed`."""
         if self._input.use_external_pose_list:
-            seg_count = self._observed.seg_count.cpu().numpy()
+            seg_count = observed.seg_count.cpu().numpy()
             return seg_count.astype(np.float32)[labels]
         if self.perch.use_cylinder_observed:
             rad = self._cyl_radius[[s.id for s in chunk]]
             xy = np.array([[s.pose.x, s.pose.y] for s in chunk], np.float64)
             return self._projected_counts(xy, rad).astype(np.float32)
-        total = float(self._observed.count.item())
+        total = float(observed.count.item())
         return np.full(len(chunk), total, np.float32)
 
     def score_object_states(self, states: Sequence[ObjectState],
-                            do_icp: bool | None = None) -> list[ScoredState]:
+                            do_icp: bool | None = None,
+                            fine: bool = False) -> list[ScoredState]:
         """Score single-object placements in gpu_batch_size chunks (the last
-        chunk padded to the full batch, padding dropped)."""
+        chunk padded to the full batch, padding dropped); fine=True scores
+        against the fine_stride scene."""
         if self._scene is None:
             raise RuntimeError("call set_input first")
-        cfg = self._scorer_config(do_icp)
+        if fine:
+            if self._scene_fine is None:
+                raise RuntimeError("fine scoring needs EnvConfig.fine_stride "
+                                   "finer than gpu_stride")
+            cfg = self._scorer_config(do_icp, stride=self.env.fine_stride)
+            cloud, scene = self._observed_fine, self._scene_fine
+        else:
+            cfg = self._scorer_config(do_icp)
+            cloud, scene = self._observed, self._scene
         results: list[ScoredState] = []
         batch = int(self.perch.gpu_batch_size)
         rb_verts, rb_colors, rb_valid, rb_backface = self._render_bank
@@ -496,14 +557,14 @@ class PerceptionEnv:
             ids = np.asarray([s.id for s in chunk], np.int64)
             labels = np.asarray(
                 [max(s.segmentation_label_id - 1, 0) for s in chunk], np.int64)
-            totals = self._observed_totals(chunk, labels)
+            totals = self._observed_totals(chunk, labels, cloud)
             dev = self._tensor
             t0 = time.perf_counter()
             scores = score_pose_batch(
                 rb_verts, rb_colors, rb_valid,
                 dev(poses, torch.float32), dev(ids), dev(labels),
                 dev(totals, torch.float32), self._proj,
-                self._scene, cfg, bank_backface=rb_backface,
+                scene, cfg, bank_backface=rb_backface,
                 bank_icp_samples=self._bank_icp_samples,
                 bank_icp_normals=self._bank_icp_normals,
                 bank_tri_lab=self._render_bank_lab)
@@ -539,11 +600,34 @@ class PerceptionEnv:
         filter: per (model, segment) in 6-DoF mode, per model in 3-DoF mode.
         collision_ordering (3-DoF) takes the commit order of the reference's
         greedy-ICP baseline instead (`_commit_with_collisions`), so two
-        models cannot claim one physical object."""
+        models cannot claim one physical object. With fine_stride, the
+        argmin runs over the fine re-scores of the best fine_top_k
+        candidates per key; with pose_refinement_rounds, the winners then go
+        through `_refine_winners`."""
         t0 = time.perf_counter()
         scored = self.score_object_states(candidates, do_icp)
         six_dof = (self._input is not None
                    and self._input.use_external_pose_list)
+        if self._scene_fine is not None:
+            groups: dict[tuple, list[ScoredState]] = {}
+            for su in scored:
+                if su.cost < 0 or abs(su.target_cost - su.source_cost) >= 30:
+                    continue
+                key = ((su.state.id, su.state.segmentation_label_id)
+                       if six_dof else (su.state.id,))
+                groups.setdefault(key, []).append(su)
+            top: list[ScoredState] = []
+            for key in sorted(groups):
+                per = sorted(groups[key], key=lambda su: su.cost)
+                top.extend(per[:self.env.fine_top_k])
+            if top:
+                # The refined poses, re-scored at the fine stride without a
+                # second ICP.
+                fine_states = [dataclasses.replace(
+                    su.state, pose=self.camera_to_world_pose(
+                        su.adjusted_pose_cam, su.state.id)) for su in top]
+                scored = self.score_object_states(fine_states, do_icp=False,
+                                                  fine=True)
         if collision_ordering and not six_dof:
             best = self._commit_with_collisions(scored)
         else:
@@ -557,6 +641,8 @@ class PerceptionEnv:
                        if six_dof else (su.state.id,))
                 if key not in best or su.cost < best[key].cost:
                     best[key] = su
+        if self.env.pose_refinement_rounds and best:
+            best = self._refine_winners(best, do_icp, six_dof)
         state = GraphState()
         chosen = []
         for key in sorted(best):
@@ -569,8 +655,62 @@ class PerceptionEnv:
             state = state.append(adj_state)
             chosen.append(dataclasses.replace(su, state=adj_state))
         self.stats.time = time.perf_counter() - t0
+        if (self.perch.vis_expanded_states and self.debug_dir
+                and state.num_objects):
+            # The final greedy state's renders (the reference's PrintStateGPU
+            # at the end of ComputeGreedyRenderPoses).
+            depth, color, _ = self.render_composite(state.object_states)
+            save_depth_image(depth, f"{self.debug_dir}/depth_greedy_state.png")
+            write_png(f"{self.debug_dir}/color_greedy_state.png",
+                      color.astype(np.uint8))
         self.stats.scenes_valid = sum(1 for s in scored if s.cost >= 0)
         return state, chosen
+
+    def _refine_winners(self, best: dict, do_icp, six_dof: bool) -> dict:
+        """pose_refinement_rounds rounds around the greedy winners: each
+        round scores every winner rotated in the camera frame about its own
+        origin by pose_refinement_angle and a third of it about each of
+        pose_refinement_axes fibonacci axes (ICP on every one), and keeps a
+        candidate that passes the |target - source| < 30 filter at a lower
+        cost than its key's winner. The rotations are Rodrigues' formula in
+        float64."""
+        axes = sphere_fibonacci_grid(self.env.pose_refinement_axes)
+        mags = (self.env.pose_refinement_angle,
+                self.env.pose_refinement_angle / 3.0)
+
+        def rodrigues(axis, angle):
+            k = np.asarray([[0, -axis[2], axis[1]],
+                            [axis[2], 0, -axis[0]],
+                            [-axis[1], axis[0], 0]])
+            return (np.eye(3) + np.sin(angle) * k
+                    + (1 - np.cos(angle)) * (k @ k))
+
+        for _ in range(self.env.pose_refinement_rounds):
+            cands: list[ObjectState] = []
+            for key in sorted(best):
+                su = best[key]
+                a = su.adjusted_pose_cam
+                for axis in axes:
+                    for mag in mags:
+                        m = a.copy()
+                        m[:3, :3] = rodrigues(axis, mag) @ a[:3, :3]
+                        cands.append(ObjectState(
+                            id=su.state.id, symmetric=su.state.symmetric,
+                            pose=self.camera_to_world_pose(m, su.state.id),
+                            segmentation_label_id=(
+                                su.state.segmentation_label_id)))
+            if not cands:
+                break
+            for su in self.score_object_states(cands, do_icp):
+                if su.cost in (-1, -2):
+                    continue
+                if abs(su.target_cost - su.source_cost) >= 30:
+                    continue
+                key = ((su.state.id, su.state.segmentation_label_id)
+                       if six_dof else (su.state.id,))
+                if key in best and su.cost < best[key].cost:
+                    best[key] = su
+        return best
 
     def _commit_with_collisions(self, scored: Sequence[ScoredState]) -> dict:
         """The reference greedy-ICP baseline's commit order

@@ -1,34 +1,55 @@
-"""Candidate-pose scoring: render -> cloud -> ICP -> fused cost.
+"""Candidate-pose scoring: render -> cloud -> ICP -> cost.
 
 Counterpart of `perception_tpu/pipeline/scorer.py`, for the 6-DoF
 configuration (cost types 2 / 3, each pose against its segment) and the
 3-DoF one (cost types 0 / 1, without segmentation labels: every pose against
 the one scene-wide segment; with `use_tree_occlusion` a pose that renders in
-front of its source is flagged and scores -1):
+front of its source is flagged and scores -1). The branches follow the JAX
+scorer's order of operations:
 
-    raster by `backend` (the direct kernel for "auto" / "pallas_direct", the
-    coefficient-table kernel for "pallas", the scatter-bin kernel for
-    "pallas_bin"; ROI or full frame) + occlusion pass
-      -> depth_to_cloud_roi / depth_to_cloud_batch
-      -> ICP on the downsampled cloud, by `icp_mode`:
-           "fused" / "fused_d2d" / "fused_d2d_exact": label-shared "near"
-             target crop + pack_targets, the fused ICP kernel in point-to-
-             plane, d2d (symmetric with icp_d2d_symmetric) or exact mode,
-             with source normals for sym and exact;
-           "nn" / "gicp": the composed refiners against the pose's segment
-             with a per-pose "near" crop, 1-NN association every iteration;
-      -> the cloud moved by the ICP delta, plus explain-only surface samples
-      -> fused cost, depth only or colour-gated (CIEDE2000) -> total cost.
+    ICP source, one of:
+      "render": raster by `backend` (the direct kernel for "auto" /
+        "pallas_direct", the coefficient-table kernel for "pallas", the
+        scatter-bin kernel for "pallas_bin"; ROI or full frame) + occlusion
+        pass -> depth_to_cloud_roi / depth_to_cloud_batch, every
+        `icp_downsample`-th point;
+      coarse (`icp_render_scale` > 1 with an ROI): the same raster at
+        stride * scale over roi // scale, against the source images sampled
+        every scale-th pixel, every point;
+      "model" (`icp_source`, fused / nn / gicp modes with surface samples):
+        no raster; the bank's surface samples at the pose, behind a
+        facing-cosine mask, with their exact normals;
+    -> ICP by `icp_mode`:
+         "fused" / "fused_d2d" / "fused_d2d_exact": a target crop
+           (`icp_crop_share` "label": one per segment around its centroid;
+           "pose": one per pose around its source centroid; `icp_crop_mode`
+           "near" or "spread") packed by pack_targets, the fused ICP kernel
+           in point-to-plane, d2d (symmetric with icp_d2d_symmetric) or exact
+           mode, with source normals for sym and exact;
+         "nn" / "gicp": the composed refiners against the pose's segment
+           with a per-pose "near" crop, 1-NN association every iteration;
+         "projective": association through the organised observed map;
+    -> the cost cloud: with `cost_cloud` "transform" and the rendered source,
+       the first-pass cloud moved by the ICP delta plus explain-only surface
+       samples; otherwise (`cost_cloud` "render", the model source, the
+       coarse pass) a re-render at the adjusted poses
+    -> cost: a fused kernel, depth only or colour-gated (CIEDE2000) on Lab;
+       for cost types 1 / 3 without the face Lab table, the composed cost
+       (the 1-NN kernel, then the gate on RGB converted per point)
+    -> total cost.
 
 The same `ScorerConfig` (field names and defaults as the JAX one) selects the
-path; every branch that is not ported raises NotImplementedError. As in the
-JAX scorer, the backend changes only the raster: ICP and cost run the same
-kernels under every backend.
+path. As in the JAX scorer, the backend changes only the raster: ICP and cost
+run the same kernels under every backend. Backend "xla" raises (in the
+raster). The fused cost kernels take any cloud size: the JAX package's
+switch to its composed cost above 2048 points per pose is a cap of the TPU's
+VMEM and is not ported.
 
-The colour-gated cost (types 1 / 3, with `bank_tri_lab`) compares Lab
+The colour-gated fused cost (types 1 / 3, with `bank_tri_lab`) compares Lab
 colours: on the ROI path the cost kernel looks up each point's rendered Lab
-from its winning face id; on the full-frame path the raster draws the Lab
-face colours, so the cloud's colour channel holds Lab.
+from its winning face id (the face ids of the render that made the cost
+cloud); on the full-frame path the raster draws the Lab face colours, so the
+cloud's colour channel holds Lab.
 """
 
 from __future__ import annotations
@@ -37,15 +58,22 @@ import dataclasses
 
 import torch
 
-from perception_tpu_torch.ops.cost import COST_TYPE_6DOF, compute_costs_fused
+from perception_tpu_torch.ops.cost import (
+    COST_TYPE_6DOF,
+    compute_costs,
+    compute_costs_fused,
+)
 from perception_tpu_torch.ops.icp import (
     cloud_normals,
     crop_targets,
     icp_gicp_batch,
     icp_point_to_plane_batch,
+    icp_projective_batch,
     rotate_points,
 )
 from perception_tpu_torch.ops.icp_fused import icp_fused, pack_targets
+from perception_tpu_torch.ops.knn import nn1_batch
+from perception_tpu_torch.ops.numerics import dot3_fma, sqrt
 from perception_tpu_torch.ops.pointcloud import (
     depth_to_cloud_batch,
     depth_to_cloud_roi,
@@ -62,6 +90,10 @@ class ObservedScene:
     seg_lab: torch.Tensor        # [L, S, 3] CIELAB of seg_rgb (ops.color)
     seg_valid: torch.Tensor      # [L, S] bool
     seg_normals: torch.Tensor    # [L, S, 3]
+    map_xyz: torch.Tensor        # [h_s * w_s, 3] organised observed map
+    map_normals: torch.Tensor    # [h_s * w_s, 3]
+    map_valid: torch.Tensor      # [h_s * w_s] bool
+    map_label: torch.Tensor      # [h_s * w_s] int32 0-based (-1 invalid)
     source_depth: torch.Tensor   # [h_s, w_s] int32 render units
     source_label: torch.Tensor   # [h_s, w_s] int32 1-based
 
@@ -126,7 +158,10 @@ class ScorerConfig:
                 else self.icp_transformation_epsilon * 0.1)
 
 
-ICP_MODES = ("fused", "fused_d2d", "fused_d2d_exact", "nn", "gicp")
+ICP_MODES = ("fused", "fused_d2d", "fused_d2d_exact", "nn", "gicp",
+             "projective")
+# The ICP modes that take the render-free model source.
+MODEL_SOURCE_MODES = ("fused", "fused_d2d", "fused_d2d_exact", "nn", "gicp")
 
 
 @dataclasses.dataclass
@@ -140,24 +175,11 @@ class PoseScores:
     point_count: torch.Tensor       # [N] float32 rendered points per pose
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet")
-
-
 def _check_config(cfg: ScorerConfig) -> None:
     if cfg.cost_type not in (0, 1, 2, 3):
         raise ValueError(f"unknown cost_type {cfg.cost_type}")
-    if cfg.do_icp:
-        if cfg.icp_mode == "projective":
-            raise _unported("icp_mode='projective' (organised map tensors)")
-        if cfg.icp_mode not in ICP_MODES:
-            raise ValueError(f"unknown icp_mode {cfg.icp_mode!r}")
-        if cfg.icp_source != "render":
-            raise _unported(f"icp_source={cfg.icp_source!r}")
-        if cfg.icp_render_scale > 1:
-            raise _unported("icp_render_scale > 1")
-        if cfg.cost_cloud != "transform":
-            raise _unported(f"cost_cloud={cfg.cost_cloud!r}")
+    if cfg.do_icp and cfg.icp_mode not in ICP_MODES:
+        raise ValueError(f"unknown icp_mode {cfg.icp_mode!r}")
 
 
 def _render_and_cloud(bank_tri_verts, bank_tri_colors, bank_tri_valid, poses,
@@ -199,30 +221,52 @@ def _pad_points(x: torch.Tensor, p: int, fill) -> torch.Tensor:
 
 
 def _icp_targets(scene: ObservedScene, labels: torch.Tensor,
+                 src_xyz: torch.Tensor, src_valid: torch.Tensor,
                  cfg: ScorerConfig) -> torch.Tensor:
-    """[N, k, 8] packed ICP targets: one "near" crop per segment around its
-    valid centroid, shared by every pose of that segment."""
+    """[N, k, 8] packed ICP targets: the whole segment when it fits in k
+    rows; else a crop by cfg.icp_crop_mode, one per segment around its
+    valid centroid, shared by every pose of that segment
+    (icp_crop_share "label"), or one per pose around its valid source
+    centroid (any other share, as the JAX scorer reads it)."""
     s = scene.seg_xyz.shape[1]
     k = min(cfg.icp_crop_targets or 256, s)
     seg_pk = pack_targets(scene.seg_xyz, scene.seg_valid, scene.seg_normals)
     if k >= s:
         return seg_pk[labels]
-    if cfg.icp_crop_share != "label":
-        raise _unported(f"icp_crop_share={cfg.icp_crop_share!r}")
-    valid = scene.seg_valid
-    # Float64 sum, so the f32 centroid does not depend on the device's
-    # summation order.
-    segc = ((scene.seg_xyz.double() * valid[..., None]).sum(dim=1)
-            / torch.clamp(valid.sum(dim=1), min=1)[:, None]).float()
-    cidx = crop_targets(scene.seg_xyz, valid, segc, k, mode=cfg.icp_crop_mode)
-    cropped = torch.gather(seg_pk, 1, cidx[..., None].expand(-1, -1, 8))
-    return cropped[labels]
+    # Centroids summed in float64, so the f32 centre does not depend on the
+    # device's summation order.
+    if cfg.icp_crop_share == "label":
+        valid = scene.seg_valid
+        segc = ((scene.seg_xyz.double() * valid[..., None]).sum(dim=1)
+                / torch.clamp(valid.sum(dim=1), min=1)[:, None]).float()
+        cidx = crop_targets(scene.seg_xyz, valid, segc, k,
+                            mode=cfg.icp_crop_mode)
+        cropped = torch.gather(seg_pk, 1, cidx[..., None].expand(-1, -1, 8))
+        return cropped[labels]
+    centers = ((src_xyz.double() * src_valid[..., None]).sum(dim=1)
+               / torch.clamp(src_valid.sum(dim=1), min=1)[:, None]).float()
+    cidx = crop_targets(scene.seg_xyz[labels], scene.seg_valid[labels],
+                        centers, k, mode=cfg.icp_crop_mode)
+    return torch.gather(seg_pk[labels], 1, cidx[..., None].expand(-1, -1, 8))
 
 
 def _refine(src_xyz: torch.Tensor, src_valid: torch.Tensor,
-            scene: ObservedScene, labels: torch.Tensor,
-            cfg: ScorerConfig) -> torch.Tensor:
-    """ICP deltas [N, 4, 4] by cfg.icp_mode, as the JAX scorer dispatches."""
+            src_nrm: torch.Tensor | None, scene: ObservedScene,
+            labels: torch.Tensor, cfg: ScorerConfig) -> torch.Tensor:
+    """ICP deltas [N, 4, 4] by cfg.icp_mode, as the JAX scorer dispatches.
+    src_nrm: the model source's exact normals (None for a rendered source,
+    whose normals the modes that need them estimate by k-NN)."""
+    if cfg.icp_mode == "projective":
+        return icp_projective_batch(
+            src_xyz, src_valid, scene.map_xyz, scene.map_normals,
+            scene.map_valid, scene.map_label, labels,
+            fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=cfg.width,
+            height=cfg.height, stride=cfg.stride,
+            max_iterations=cfg.icp_max_iterations,
+            max_correspondence=cfg.icp_max_correspondence,
+            rotation_epsilon=cfg.icp_rotation_epsilon,
+            transformation_epsilon=cfg.icp_transformation_epsilon,
+            use_labels=cfg.use_segmentation_label).delta
     if cfg.icp_mode in ("nn", "gicp"):
         tgt = (scene.seg_xyz[labels], scene.seg_valid[labels],
                scene.seg_normals[labels])
@@ -236,24 +280,28 @@ def _refine(src_xyz: torch.Tensor, src_valid: torch.Tensor,
                 transformation_epsilon=cfg.icp_transformation_epsilon,
                 **common).delta
         rot_eps, trn_eps = cfg.d2d_epsilons()
+        if src_nrm is None:
+            src_nrm = cloud_normals(src_xyz, src_valid)
         return icp_gicp_batch(
-            src_xyz, src_valid, cloud_normals(src_xyz, src_valid), *tgt,
+            src_xyz, src_valid, src_nrm, *tgt,
             rotation_epsilon=rot_eps, transformation_epsilon=trn_eps,
             gicp_epsilon=cfg.icp_gicp_epsilon, **common).delta
     exact = cfg.icp_mode == "fused_d2d_exact"
     d2d = cfg.icp_mode != "fused"
-    src_nrm = None
+    fused_nrm = None
     if exact or (d2d and cfg.icp_d2d_symmetric):
         # Source covariances from k-NN normals of the rendered cloud, as
-        # fast_gicp estimates them.
-        src_nrm = cloud_normals(src_xyz, src_valid)
+        # fast_gicp estimates them; the model source brings exact ones.
+        fused_nrm = (src_nrm if src_nrm is not None
+                     else cloud_normals(src_xyz, src_valid))
     if d2d:
         rot_eps, trn_eps = cfg.d2d_epsilons()
     else:
         rot_eps = cfg.icp_rotation_epsilon
         trn_eps = cfg.icp_transformation_epsilon
     return icp_fused(
-        src_xyz, src_valid, _icp_targets(scene, labels, cfg), src_nrm,
+        src_xyz, src_valid,
+        _icp_targets(scene, labels, src_xyz, src_valid, cfg), fused_nrm,
         max_iterations=cfg.icp_max_iterations,
         max_correspondence=cfg.icp_max_correspondence,
         nn_every=cfg.icp_exact_nn_every if exact else cfg.icp_nn_every,
@@ -261,6 +309,31 @@ def _refine(src_xyz: torch.Tensor, src_valid: torch.Tensor,
         stagnation_streak=cfg.icp_stagnation_streak,
         d2d_epsilon=cfg.icp_gicp_epsilon if d2d else 0.0, exact=exact,
         assoc_trigger=cfg.icp_assoc_trigger)
+
+
+def model_source(poses: torch.Tensor, model_ids: torch.Tensor,
+                 bank_icp_samples: torch.Tensor,
+                 bank_icp_normals: torch.Tensor,
+                 bank_backface: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The render-free ICP source: (points [N, K, 3], facing [N, K] bool,
+    normals [N, K, 3]), the bank's surface samples and normals at each pose
+    in the camera frame. A sample counts where its normal faces the camera
+    by a cosine over 0.2 (n . p < -0.2 |p|: grazing faces have full weight
+    among the samples but almost no area in a render), or everywhere on a
+    model without backface culling (unsigned normals). The rotations, dot
+    products and norm are rounded as XLA's CPU backend rounds them (fused
+    multiply-adds in index order), so a grazing sample falls on the same
+    side of the threshold as in the JAX scorer."""
+    rot = poses[:, None, :3, :3]                               # [N, 1, 3, 3]
+    samp = bank_icp_samples[model_ids][:, :, None, :]          # [N, K, 1, 3]
+    snrm = bank_icp_normals[model_ids][:, :, None, :]
+    p_cam = dot3_fma(rot, samp) + poses[:, None, :3, 3]
+    n_cam = dot3_fma(rot, snrm)
+    facing = dot3_fma(n_cam, p_cam) < -0.2 * sqrt(dot3_fma(p_cam, p_cam))
+    if bank_backface is not None:
+        facing = facing | ~bank_backface[model_ids][:, None]
+    return p_cam, facing, n_cam
 
 
 def score_pose_batch(
@@ -294,76 +367,90 @@ def score_pose_batch(
         observed_total = torch.minimum(
             observed_total, cost_valid.sum(dim=1).to(observed_total.dtype))
 
-    # The fused kernels take any cloud size (the JAX package switches to its
-    # composed cost above 2048 points only for the TPU's VMEM). The colour
-    # gate compares Lab, so it needs the face Lab table.
-    color = cfg.cost_type in (1, 3)
-    if color and bank_tri_lab is None:
-        raise _unported("the colour cost without bank_tri_lab (the composed "
-                        "RGB path)")
-    # ROI clouds keep pixel == point order, so the cost kernel looks the
+    # The colour gate compares Lab: in a fused kernel with the face Lab
+    # table, else in the composed cost, which converts RGB per point. ROI
+    # clouds keep pixel == point order, so the fused kernel looks the
     # rendered Lab up by face id; full-frame clouds are compacted, so the
     # raster draws Lab face colours instead.
-    tri_color = color and cfg.roi_shape is not None
-    render_colors = (bank_tri_lab if color and not tri_color
+    color = cfg.cost_type in (1, 3)
+    fused_color = color and bank_tri_lab is not None
+    tri_color = fused_color and cfg.roi_shape is not None
+    render_colors = (bank_tri_lab if fused_color and not tri_color
                      else bank_tri_colors)
-    cost_lab = scene.seg_lab[:, :sc][labels] if color else None
+    cost_rgb = ((scene.seg_lab if fused_color else scene.seg_rgb)
+                [:, :sc][labels] if color else None)
 
-    render, cloud = _render_and_cloud(
-        bank_tri_verts, render_colors, bank_tri_valid, poses, ids, proj,
-        scene, labels, cfg, bank_backface)
+    from_model = (cfg.do_icp and cfg.icp_source == "model"
+                  and bank_icp_samples is not None
+                  and cfg.icp_mode in MODEL_SOURCE_MODES)
+    coarse = (cfg.do_icp and cfg.icp_render_scale > 1
+              and cfg.roi_shape is not None and not from_model)
+    render_args = (bank_tri_verts, render_colors, bank_tri_valid)
+    src_nrm = None
+    if from_model:
+        render = cloud = None
+        src_xyz, src_valid, src_nrm = model_source(
+            poses, ids, bank_icp_samples, bank_icp_normals, bank_backface)
+    elif coarse:
+        # The pre-ICP pass feeds only the ICP source: the raster at
+        # stride * scale over roi // scale samples the pixels that every
+        # scale-th point of the full pass would have kept.
+        scale = cfg.icp_render_scale
+        coarse_cfg = dataclasses.replace(
+            cfg, stride=cfg.stride * scale,
+            roi_shape=(cfg.roi_shape[0] // scale, cfg.roi_shape[1] // scale))
+        coarse_scene = dataclasses.replace(
+            scene, source_depth=scene.source_depth[::scale, ::scale],
+            source_label=scene.source_label[::scale, ::scale])
+        render, cloud = _render_and_cloud(
+            *render_args, poses, ids, proj, coarse_scene, labels, coarse_cfg,
+            bank_backface)
+        src_xyz, src_valid = cloud.xyz, cloud.valid
+    else:
+        render, cloud = _render_and_cloud(
+            *render_args, poses, ids, proj, scene, labels, cfg, bank_backface)
+        ds = cfg.icp_downsample
+        src_xyz, src_valid = cloud.xyz[:, ::ds], cloud.valid[:, ::ds]
 
     adjusted = poses
     explain_only = None
-    cloud_xyz, cloud_valid = cloud.xyz, cloud.valid
     if cfg.do_icp:
-        ds = cfg.icp_downsample
-        delta = _refine(cloud.xyz[:, ::ds], cloud.valid[:, ::ds], scene,
-                        labels, cfg)
+        delta = _refine(src_xyz, src_valid, src_nrm, scene, labels, cfg)
         adjusted = _compose(delta, poses)
-        # The cost cloud is the first-pass cloud moved rigidly by the delta.
-        moved = (rotate_points(delta[:, :3, :3], cloud.xyz)
-                 + delta[:, None, :3, 3])
-        cloud_xyz = torch.where(cloud.valid[..., None], moved, cloud.xyz)
-        if bank_icp_samples is not None:
-            # Explain-only front-hemisphere surface samples at the adjusted
-            # pose: they may explain observed points, never count as
-            # rendered ones.
-            samp = bank_icp_samples[ids]
-            snrm = bank_icp_normals[ids]
-            if cfg.cost_aug_samples and cfg.cost_aug_samples < samp.shape[1]:
-                step = -(-samp.shape[1] // cfg.cost_aug_samples)
-                samp, snrm = samp[:, ::step], snrm[:, ::step]
-            rot = adjusted[:, :3, :3]
-            aug_xyz = rotate_points(rot, samp) + adjusted[:, None, :3, 3]
-            n_cam = rotate_points(rot, snrm)
-            aug_valid = (n_cam[..., 0] * aug_xyz[..., 0]
-                         + n_cam[..., 1] * aug_xyz[..., 1]
-                         + n_cam[..., 2] * aug_xyz[..., 2]) < 0.0
-            n_b, p_b = cloud.valid.shape
-            k_b = aug_xyz.shape[1]
-            cloud_xyz = torch.cat([cloud_xyz, aug_xyz], dim=1)
-            cloud_valid = torch.cat([cloud.valid, aug_valid], dim=1)
-            explain_only = torch.cat(
-                [torch.zeros((n_b, p_b), dtype=torch.bool, device=poses.device),
-                 torch.ones((n_b, k_b), dtype=torch.bool, device=poses.device)],
-                dim=1)
+        if cfg.cost_cloud == "transform" and not from_model and not coarse:
+            cloud, explain_only = _moved_cloud(
+                cloud, delta, adjusted, ids, bank_icp_samples,
+                bank_icp_normals, cfg)
+        else:
+            # Re-render and re-cloud at the adjusted poses (the reference's
+            # own semantics, renderer.cu:1740-1817).
+            render, cloud = _render_and_cloud(
+                *render_args, adjusted, ids, proj, scene, labels, cfg,
+                bank_backface)
 
-    # The explain-only samples have no face and no rendered colour.
-    p_all = cloud_xyz.shape[1]
-    tri_kw = {}
-    if tri_color:
-        tri_id = render.tri_id.reshape(render.tri_id.shape[0], -1)
-        tri_kw = dict(cloud_tri_id=_pad_points(tri_id, p_all, -1),
-                      model_ids=ids, bank_lab=bank_tri_lab)
-    cloud_lab = (_pad_points(cloud.rgb, p_all, 0.0)
-                 if color and not tri_color else None)
-    costs = compute_costs_fused(
-        cloud_xyz, cloud_valid, render.pose_occluded, cost_xyz, cost_valid,
-        observed_total, sensor_resolution=cfg.sensor_resolution,
-        cloud_lab=cloud_lab, tgt_lab=cost_lab,
-        color_distance_threshold=cfg.color_distance_threshold,
-        use_color=color, cloud_explain_only=explain_only, **tri_kw)
+    if color and not fused_color:
+        dist_sq, idx = nn1_batch(cloud.xyz, cloud.valid, cost_xyz, cost_valid)
+        costs = compute_costs(
+            dist_sq, idx, cloud.valid, render.pose_occluded, cloud.rgb,
+            cost_rgb, observed_total, sensor_resolution=cfg.sensor_resolution,
+            color_distance_threshold=cfg.color_distance_threshold,
+            cost_type=cfg.cost_type, cloud_explain_only=explain_only)
+    else:
+        tri_kw = {}
+        if tri_color:
+            # The explain-only samples have no face.
+            tri_id = render.tri_id.reshape(render.tri_id.shape[0], -1)
+            tri_kw = dict(
+                cloud_tri_id=_pad_points(tri_id, cloud.xyz.shape[1], -1),
+                model_ids=ids, bank_lab=bank_tri_lab)
+        costs = compute_costs_fused(
+            cloud.xyz, cloud.valid, render.pose_occluded, cost_xyz,
+            cost_valid, observed_total,
+            sensor_resolution=cfg.sensor_resolution,
+            cloud_lab=cloud.rgb if fused_color and not tri_color else None,
+            tgt_lab=cost_rgb,
+            color_distance_threshold=cfg.color_distance_threshold,
+            use_color=fused_color, cloud_explain_only=explain_only, **tri_kw)
 
     invalid = costs.rendered_cost.to(torch.int32) < 0
     total_f = costs.rendered_cost + costs.observed_cost
@@ -379,3 +466,38 @@ def score_pose_batch(
         pose_occluded=render.pose_occluded,
         point_count=costs.pose_point_num,
     )
+
+
+def _moved_cloud(cloud, delta, adjusted, ids, bank_icp_samples,
+                 bank_icp_normals, cfg: ScorerConfig):
+    """The cost cloud of cost_cloud="transform": the first-pass cloud moved
+    rigidly by the ICP delta and, given the bank's surface samples, their
+    front hemisphere at the adjusted pose appended as explain-only points
+    (they may explain observed points, never count as rendered ones; their
+    colour is 0). Returns (cloud, explain_only [N, P + K] bool or None)."""
+    moved = (rotate_points(delta[:, :3, :3], cloud.xyz)
+             + delta[:, None, :3, 3])
+    xyz = torch.where(cloud.valid[..., None], moved, cloud.xyz)
+    if bank_icp_samples is None:
+        return dataclasses.replace(cloud, xyz=xyz), None
+    samp = bank_icp_samples[ids]
+    snrm = bank_icp_normals[ids]
+    if cfg.cost_aug_samples and cfg.cost_aug_samples < samp.shape[1]:
+        # A strided slice of the area-stratified samples stays uniform.
+        step = -(-samp.shape[1] // cfg.cost_aug_samples)
+        samp, snrm = samp[:, ::step], snrm[:, ::step]
+    rot = adjusted[:, :3, :3]
+    aug_xyz = rotate_points(rot, samp) + adjusted[:, None, :3, 3]
+    n_cam = rotate_points(rot, snrm)
+    aug_valid = (n_cam[..., 0] * aug_xyz[..., 0]
+                 + n_cam[..., 1] * aug_xyz[..., 1]
+                 + n_cam[..., 2] * aug_xyz[..., 2]) < 0.0
+    n_b, p_b = cloud.valid.shape
+    k_b = aug_xyz.shape[1]
+    explain_only = torch.cat(
+        [torch.zeros((n_b, p_b), dtype=torch.bool, device=xyz.device),
+         torch.ones((n_b, k_b), dtype=torch.bool, device=xyz.device)], dim=1)
+    return dataclasses.replace(
+        cloud, xyz=torch.cat([xyz, aug_xyz], dim=1),
+        rgb=_pad_points(cloud.rgb, p_b + k_b, 0.0),
+        valid=torch.cat([cloud.valid, aug_valid], dim=1)), explain_only

@@ -126,6 +126,44 @@ def test_localize_cli_matches_jax(scene, fmt, capsys):
                               - [gt.x, gt.y, gt.z]) < 0.12
 
 
+@pytest.mark.parametrize("params", [
+    {"icp_source": "model", "icp_stagnation_streak": 5,
+     "icp_crop_targets": 128},
+    {"fine_stride": 1, "pose_refinement_rounds": 1, "cost_cloud": "render",
+     "max_observed_points": 1024, "max_points_per_label": 512},
+], ids=["fast_profile", "fine_refine_render"])
+def test_env_params_reach_the_env(scene, params, capsys, monkeypatch):
+    """EnvConfig fields in env_params (the speed profile's; the fine
+    re-score, a refinement round and the re-render cost) reach the env the
+    CLI builds, which runs them: both objects detected within 12 cm."""
+    from perception_tpu_torch.pipeline.env import PerceptionEnv
+
+    root, _ = scene
+    cfg = json.loads((root / "scene.json").read_text())
+    cfg["env_params"] = {**cfg["env_params"], **params}
+    path = root / f"scene_{len(params)}.json"
+    path.write_text(json.dumps(cfg))
+    seen = []
+    greedy = PerceptionEnv.compute_greedy_poses
+
+    def record(self, *args, **kwargs):
+        seen.append(self.env)
+        return greedy(self, *args, **kwargs)
+
+    monkeypatch.setattr(PerceptionEnv, "compute_greedy_poses", record)
+    out_dir = root / f"port_out_{len(params)}"
+    rc = cli.main(["localize", "--config", str(path), "--output",
+                   str(out_dir), "--device", "cpu"])
+    assert rc == 0
+    assert seen and all(getattr(seen[0], k) == v for k, v in params.items())
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert sorted(summary["detected"]) == sorted(NAMES)
+    for r in read_output_poses(str(out_dir / "output_poses.txt")):
+        gt = gt_states()[NAMES.index(r["name"])].pose
+        assert np.linalg.norm(np.asarray(r["location"])
+                              - [gt.x, gt.y, gt.z]) < 0.12
+
+
 def test_yaml_config_without_the_yaml_module_raises(tmp_path, monkeypatch):
     path = tmp_path / "scene.yaml"
     path.write_text("mode: greedy\n")

@@ -7,12 +7,14 @@ multiply-adds could round differently."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from perception_tpu.ops import cost as jcost
 from perception_tpu.ops import pallas_cost as jpc
 from perception_tpu_torch import convert
 from perception_tpu_torch.ops import cost as pcost
 from perception_tpu_torch.ops import cost_fused as pcf
+from perception_tpu_torch.ops import knn as pknn
 
 
 def _clouds(seed, n=4, p=300, s=200):
@@ -81,10 +83,25 @@ def test_compute_costs_fused_matches_jax():
 
 
 def test_colour_cost_is_not_ported():
+    """The colour cost on RGB, once unported, is the composed
+    compute_costs (tests/test_torch_branch_ops.py holds it to JAX's): the
+    fused form refuses colour without Lab inputs with a ValueError, and the
+    composed form scores the same inputs."""
     cloud, cvalid, tgt, tvalid, _ = _clouds(3, n=1)
-    with pytest.raises(NotImplementedError):
+    t = convert.tensor
+    with pytest.raises(ValueError, match="Lab"):
         pcost.compute_costs_fused(
-            convert.tensor(cloud), convert.tensor(cvalid),
-            convert.tensor(np.zeros(1, np.int32)), convert.tensor(tgt),
-            convert.tensor(tvalid), convert.tensor(np.ones(1, np.float32)),
-            sensor_resolution=0.01, use_color=True)
+            t(cloud), t(cvalid), t(np.zeros(1, np.int32)), t(tgt), t(tvalid),
+            t(np.ones(1, np.float32)), sensor_resolution=0.01, use_color=True)
+    dist, idx = pknn.nn1_batch(t(cloud), t(cvalid), t(tgt), t(tvalid))
+    rgb = np.full(cloud.shape, 128.0, np.float32)
+    out = pcost.compute_costs(
+        dist, idx, t(cvalid), t(np.zeros(1, np.int32)), t(rgb),
+        t(np.full(tgt.shape, 128.0, np.float32)), t(np.ones(1, np.float32)),
+        sensor_resolution=0.01, cost_type=3)
+    depth = pcost.compute_costs(
+        dist, idx, t(cvalid), t(np.zeros(1, np.int32)), t(rgb),
+        t(np.full(tgt.shape, 128.0, np.float32)), t(np.ones(1, np.float32)),
+        sensor_resolution=0.01, cost_type=2)
+    # Equal colours pass the gate: the colour cost is the depth cost.
+    assert torch.equal(out.rendered_cost, depth.rendered_cost)

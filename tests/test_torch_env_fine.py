@@ -1,0 +1,256 @@
+"""The port env's coarse-to-fine re-score (`EnvConfig.fine_stride`), its pose
+refinement rounds and its final-state image dump, against the JAX package.
+
+Scenes from tests/test_pipeline.py (two boxes, 128x96, gpu_stride 2). The
+fine scene at stride 1 multiplies the point capacities by 4, so the
+fine-stride scene runs at a quarter of make_env's: 1024 observed points and
+512 per segment (4096 and 2048 at stride 1; JAX's knn_self holds
+[L, 4 cap, 4 cap] distances on the CPU). The JAX side runs its Pallas kernels
+in interpret mode (kernel_backend="pallas_direct_interpret",
+icp_mode="fused"); at stride 1 its cloud cap (2048 + 256 explain-only
+samples) exceeds its fused cost's 2048, so it takes its composed cost there,
+where the port keeps its fused kernels.
+
+Tolerance: the same winners (model, segment), total costs within 2, output
+translations within 1 mm.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from perception_tpu.core.config import EnvConfig as JEnvConfig
+from perception_tpu.core.pose import ContPose, euler_xyz_to_matrix, matrix_to_quat
+from perception_tpu.core.state import ObjectState
+from perception_tpu_torch import convert
+from perception_tpu_torch.core.config import (
+    CameraIntrinsics,
+    EnvConfig,
+    PerchConfig,
+)
+from perception_tpu_torch.io.images import read_png
+from perception_tpu_torch.kernels import build
+from perception_tpu_torch.pipeline.env import PerceptionEnv
+
+from tests.test_pipeline import CAM, gt_states, make_env
+
+PCAM = convert.dataclass_from_jax(CAM, CameraIntrinsics)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's PyTorch CPU work on one thread: beside the other
+    test workers, several intra-op threads per process only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _port_env(jax_env) -> PerceptionEnv:
+    """The port's env with the JAX env's bank and configuration, and its
+    observation."""
+    env = PerceptionEnv(
+        convert.bank_from_jax(jax_env.bank), PCAM,
+        convert.dataclass_from_jax(jax_env.perch, PerchConfig),
+        convert.dataclass_from_jax(jax_env.env, EnvConfig, icp_mode="auto",
+                                   kernel_backend="auto"), device="cpu")
+    env.set_input(convert.input_from_jax(jax_env._input))
+    return env
+
+
+def _candidates(n_per_object: int, seed: int, sigma: float):
+    rng = np.random.default_rng(seed)
+    cands = []
+    for obj in gt_states():
+        cands.append(obj)
+        for _ in range(n_per_object):
+            j = rng.normal(0, sigma, 3)
+            cands.append(ObjectState(
+                id=obj.id, symmetric=False,
+                pose=ContPose.from_quat(obj.pose.x + j[0], obj.pose.y + j[1],
+                                        obj.pose.z + j[2],
+                                        *obj.pose.quaternion()),
+                segmentation_label_id=obj.segmentation_label_id))
+    return cands
+
+
+def _assert_same_winners(ref, out):
+    (r_state, r_chosen), (o_state, o_chosen) = ref, out
+    key = lambda su: (su.state.id, su.state.segmentation_label_id)  # noqa: E731
+    assert [key(s) for s in o_chosen] == [key(s) for s in r_chosen]
+    assert r_chosen
+    for r, o in zip(r_chosen, o_chosen):
+        assert abs(r.cost - o.cost) <= 2, (r.cost, o.cost)
+        np.testing.assert_allclose(
+            [o.state.pose.x, o.state.pose.y, o.state.pose.z],
+            [r.state.pose.x, r.state.pose.y, r.state.pose.z], atol=1e-3)
+
+
+def test_fine_stride_matches_jax():
+    """fine_stride=1 under gpu_stride=2: the best fine_top_k candidates per
+    (model, segment) re-scored at their refined poses, without ICP, against
+    the stride-1 scene (the capacities x4, the cloud cap 512 x 4). The
+    colour gate at the fine stride (JAX converts each rendered point's RGB,
+    the port reads the face Lab table) is measured at the bench widths by
+    fine_cost_agreement below."""
+    jenv = make_env()
+    jenv.env = dataclasses.replace(
+        jenv.env, icp_mode="fused", kernel_backend="pallas_direct_interpret",
+        max_observed_points=1024, max_points_per_label=512, fine_stride=1,
+        fine_top_k=4)
+    jenv.set_observation_from_states(gt_states())
+    env = _port_env(jenv)
+    assert env._scene_fine.seg_xyz.shape[1] == 2048
+    assert env._scorer_config(stride=1).max_points_per_pose == 2048
+    cands = _candidates(6, seed=1, sigma=0.01)
+    ref = jenv.compute_greedy_poses(cands)
+    build.reset_counts()
+    out = env.compute_greedy_poses(convert.states_from_jax(cands))
+    # The coarse batch, then the fine re-score (no ICP).
+    assert build.TWIN_CALLS == {"raster_direct": 2, "icp_fused": 1,
+                                "cost_fused": 2}
+    _assert_same_winners(ref, out)
+
+
+def test_pose_refinement_rounds_match_jax():
+    """pose_refinement_rounds=2 with 8 fibonacci axes on
+    test_pipeline.test_pose_refinement_rounds_improve_rotation's scene (a
+    candidate rotated by (0.18, -0.12, 0.15) rad): the same refined winner,
+    better than the unrefined one. Scored without ICP: under that test's 8
+    ICP iterations, 2 of the first round's 16 rotations take chaotic
+    trajectories (the packages end them 79 and 36 mm apart) and one of them
+    passes the |target - source| < 30 filter on one side only."""
+    jenv = make_env()
+    jenv.env = dataclasses.replace(
+        jenv.env, icp_mode="fused", kernel_backend="pallas_direct_interpret",
+        pose_refinement_rounds=2, pose_refinement_axes=8)
+    jenv.set_observation_from_states(gt_states())
+    env = _port_env(jenv)
+    gt = gt_states()
+    pert = euler_xyz_to_matrix(0.18, -0.12, 0.15) @ gt[0].pose.rotation()
+    bad = ObjectState(
+        id=0, symmetric=False,
+        pose=ContPose.from_quat(gt[0].pose.x, gt[0].pose.y, gt[0].pose.z,
+                                *matrix_to_quat(pert)),
+        segmentation_label_id=1)
+    ref = jenv.compute_greedy_poses([bad], do_icp=False)
+    build.reset_counts()
+    out = env.compute_greedy_poses(convert.states_from_jax([bad]),
+                                   do_icp=False)
+    # The sweep, then one batch of 16 rotations per round.
+    assert build.TWIN_CALLS == {"raster_direct": 3, "cost_fused": 3}
+    assert env.stats.scenes_rendered == 1 + 2 * 16
+    _assert_same_winners(ref, out)
+    env.env = dataclasses.replace(env.env, pose_refinement_rounds=0)
+    _, plain = env.compute_greedy_poses(convert.states_from_jax([bad]),
+                                        do_icp=False)
+    assert out[1][0].cost < plain[0].cost
+
+
+def test_vis_expanded_states_writes_the_final_state(tmp_path):
+    """vis_expanded_states with a debug_dir: the final greedy state's depth
+    (colorised) and colour renders as two readable PNGs; none without a
+    debug_dir."""
+    jenv = make_env()
+    jenv.set_observation_from_states(gt_states())
+    env = _port_env(jenv)
+    env.perch = dataclasses.replace(env.perch, vis_expanded_states=True)
+    env.compute_greedy_poses(convert.states_from_jax(gt_states()),
+                             do_icp=False)
+    assert not list(tmp_path.iterdir())
+    env.debug_dir = str(tmp_path / "debug")
+    state, _ = env.compute_greedy_poses(
+        convert.states_from_jax(gt_states()), do_icp=False)
+    assert state.num_objects == 2
+    depth = read_png(str(tmp_path / "debug" / "depth_greedy_state.png"))
+    color = read_png(str(tmp_path / "debug" / "color_greedy_state.png"))
+    assert depth.shape == color.shape == (CAM.height, CAM.width, 3)
+    assert depth.dtype == color.dtype == np.uint8
+    seen = depth.any(axis=-1)
+    assert 0 < seen.mean() < 1
+    np.testing.assert_array_equal(color.any(axis=-1), seen)
+    # The red box renders red, the green one green.
+    assert (color[..., 0] > 150).any() and (color[..., 1] > 150).any()
+
+
+def test_env_config_profiles_match_jax():
+    """fast_profile and noisy_profile change the same fields as JAX's, and
+    every EnvConfig field the branches read has the JAX default."""
+    for profile in ("fast_profile", "noisy_profile"):
+        ref = getattr(JEnvConfig(), profile)()
+        out = getattr(EnvConfig(), profile)()
+        assert dataclasses.asdict(out) == {
+            f.name: getattr(ref, f.name) for f in dataclasses.fields(EnvConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(JEnvConfig)}
+    for name in ("fine_top_k", "icp_model_samples", "pose_refinement_axes",
+                 "pose_refinement_angle", "cost_aug_samples", "fine_stride",
+                 "pose_refinement_rounds", "icp_source", "cost_cloud",
+                 "icp_render_scale", "icp_crop_share", "icp_crop_mode"):
+        assert getattr(EnvConfig(), name) == ref[name], name
+
+
+def fine_cost_agreement(color: bool, n_poses: int = 48) -> dict:
+    """The fine re-score's agreement on benchmarks/bench_scene.py's blob
+    problem (640x480): its candidates refined at stride 8 by the JAX scorer,
+    then re-scored without ICP at stride 4 (ROI 64x64, cap 4096), by JAX's
+    composed cost (per-point Lab from the rendered RGB, with colour) and by
+    the port's fused kernels (the face Lab table). Shares of the poses whose
+    total costs are equal and whose rendered / observed percentages are
+    equal as floats, and the largest total difference."""
+    import os
+
+    import jax.numpy as jnp
+
+    from benchmarks.bench_scene import build_bench_problem
+    from perception_tpu.pipeline import scorer as jscorer
+    from perception_tpu_torch.pipeline import scorer as pscorer
+
+    os.environ["BENCH_MODELS"] = "blob"
+    os.environ["PT_USE_COLOR"] = "1" if color else "0"
+    env, _, args, cfg = build_bench_problem(n_poses=n_poses)
+    bank = env._render_bank
+    kw = dict(bank_backface=bank[3], bank_icp_samples=env._bank_icp_samples,
+              bank_icp_normals=env._bank_icp_normals,
+              bank_tri_lab=env._render_bank_lab)
+    coarse = jscorer.score_pose_batch(
+        *args, dataclasses.replace(cfg, icp_mode="fused",
+                                   backend="pallas_direct_interpret"), **kw)
+    env.env = dataclasses.replace(env.env,
+                                  kernel_backend="pallas_direct_interpret")
+    scene, observed, _ = env._build_scene(env._input, 4)
+    fcfg = env._scorer_config(do_icp=False, stride=4)
+    labels = args[5]
+    totals = jnp.asarray(np.asarray(observed.seg_count, np.float32)[
+        np.asarray(labels)])
+    fine_args = (*bank[:3], coarse.adjusted_poses, args[4], labels, totals,
+                 env._proj)
+    ref = jscorer.score_pose_batch(*fine_args, scene, fcfg, **kw)
+    t = convert.tensor
+    out = pscorer.score_pose_batch(
+        *[t(a) for a in fine_args], convert.scene_from_jax(scene),
+        convert.scorer_config_from_jax(fcfg),
+        **{k: t(v) for k, v in kw.items()})
+    r_tot, o_tot = np.asarray(ref.total_cost), out.total_cost.numpy()
+    return {
+        "color": color, "poses": n_poses, "roi": fcfg.roi_shape,
+        "total_equal_share": float((r_tot == o_tot).mean()),
+        "total_max_diff": int(np.abs(r_tot - o_tot).max()),
+        "rendered_equal_share": float(
+            (np.asarray(ref.rendered_cost) == out.rendered_cost.numpy()).mean()),
+        "observed_equal_share": float(
+            (np.asarray(ref.observed_cost) == out.observed_cost.numpy()).mean())}
+
+
+if __name__ == "__main__":
+    # python -m tests.test_torch_env_fine: the fine re-score's agreement
+    # with JAX at the bench problem's widths (PERF.md).
+    import json
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    for c in (False, True):
+        print(json.dumps(fine_cost_agreement(c)))

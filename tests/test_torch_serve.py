@@ -283,15 +283,70 @@ def test_recognizer_from_mesh_files_writes_outputs(jax_env, tmp_path):
                               - [gt.x, gt.y, gt.z]) < 0.12
 
 
+def _served_detections(rec, payload) -> dict:
+    """POST /localize with `payload` to `rec` behind the port's HTTP
+    service: {name: detection}."""
+    server = serve(rec, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/localize"
+    try:
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            out = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
+    return {d["name"]: d for d in out["detections"]}
+
+
 @pytest.mark.parametrize("change", [
     dict(kernel_backend="xla"), dict(fine_stride=1),
     dict(pose_refinement_rounds=1),
 ])
 def test_unported_env_options_raise(jax_env, change):
+    """The env options the port once refused. kernel_backend "xla" still
+    raises; fine_stride and pose_refinement_rounds now run: given as
+    env_params (EnvConfig.from_yaml_dict, as the CLI and a served
+    recogniser read them), a greedy /localize request gives JAX's
+    detections within 1 mm. The fine-stride scene runs at a quarter of
+    make_env's point capacities (JAX's knn_self holds [L, 4 cap, 4 cap]
+    distances on the CPU)."""
+    from perception_tpu.serve import LocalizerService as JaxService
+
+    from tests.test_serve import _FakeRecognizer
+
     env = _port_env(jax_env)
     env_cfg = dataclasses.replace(env.env, **change)
-    with pytest.raises(NotImplementedError):
-        PerceptionEnv(env.bank, PCAM, env.perch, env_cfg, device="cpu")
+    if change.get("kernel_backend") == "xla":
+        with pytest.raises(NotImplementedError):
+            PerceptionEnv(env.bank, PCAM, env.perch, env_cfg, device="cpu")
+        return
+    jenv = make_env()
+    caps = (dict(max_observed_points=1024, max_points_per_label=512)
+            if "fine_stride" in change else {})
+    jenv.env = dataclasses.replace(
+        jenv.env, icp_mode="fused", kernel_backend="pallas_direct_interpret",
+        **caps, **change)
+    jenv.perch = dataclasses.replace(jenv.perch, gpu_batch_size=BATCH)
+    payload = _payload(jax_env, _pose_lists())
+    ref = {d["name"]: d for d in
+           JaxService(_FakeRecognizer(jenv)).handle(payload)["detections"]}
+    params = {**dataclasses.asdict(env.env), **caps, **change}
+    rec = ObjectRecognizer.from_models(
+        convert.models_from_jax(jax_env.bank.models), PCAM, env.perch,
+        EnvConfig.from_yaml_dict(params), t_cap=16, device="cpu")
+    for key, value in {**caps, **change}.items():
+        assert getattr(rec.env.env, key) == value
+    dets = _served_detections(rec, payload)
+    assert set(dets) == set(ref) == {"red_box", "green_box"}
+    for name, d in dets.items():
+        np.testing.assert_allclose(d["translation"], ref[name]["translation"],
+                                   atol=1e-3)
 
 
 def test_unported_inputs_raise(jax_env):
