@@ -51,20 +51,7 @@ import time
 
 import numpy as np
 
-
-def load_config(path: str) -> dict:
-    """A scene config: YAML by extension (needs the `yaml` module), JSON
-    otherwise."""
-    with open(path) as f:
-        if not path.endswith((".yaml", ".yml")):
-            return json.load(f)
-        try:
-            import yaml
-        except ImportError as e:
-            raise RuntimeError(
-                f"{path}: a YAML config needs the 'yaml' module (PyYAML), "
-                "which is not installed; give the config as .json") from e
-        return yaml.safe_load(f)
+from perception_tpu_torch.core.config import load_config
 
 
 def _resolve(base: str, path: str) -> str:

@@ -5,8 +5,9 @@
 The port's own copy of `perception_tpu/core/config.py`: the same fields with
 the same defaults, so a configuration means the same thing to both packages
 (the JAX file's field comments give the evidence behind each default). The
-file reader is the CLI's `load_config` (JSON, or YAML where the module is
-installed); `from_yaml_dict` takes an already parsed mapping. Both of the
+file reader is `load_config` (JSON, or YAML where the module is installed),
+which the CLI, the service and `load_yaml_config` read through;
+`from_yaml_dict` takes an already parsed mapping. Both of the
 JAX EnvConfig's profiles are copied: the speed profile `fast_profile` and
 the real-sensor profile `noisy_profile`.
 """
@@ -14,6 +15,7 @@ the real-sensor profile `noisy_profile`.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Mapping
 
 import numpy as np
@@ -29,6 +31,12 @@ class CameraIntrinsics:
     cy: float
     width: int
     height: int
+
+    def matrix(self) -> np.ndarray:
+        """The 3x3 intrinsic matrix K (float32)."""
+        return np.array(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=np.float32)
 
     def projection(self, near: float = 10.0, far: float = 10000.0) -> np.ndarray:
         """OpenGL-style projection from intrinsics, with the sign flips of
@@ -169,3 +177,24 @@ class EnvConfig:
         AUC over the point-to-plane default under its Kinect noise model, and
         not better noise-free), for physical depth cameras."""
         return dataclasses.replace(self, icp_mode="fused_d2d_exact")
+
+
+def load_config(path: str) -> dict:
+    """A config file's mapping: YAML by extension (needs the `yaml` module),
+    JSON otherwise (a JSON file is also valid YAML)."""
+    with open(path) as f:
+        if not path.endswith((".yaml", ".yml")):
+            return json.load(f)
+        try:
+            import yaml
+        except ImportError as e:
+            raise RuntimeError(
+                f"{path}: a YAML config needs the 'yaml' module (PyYAML), "
+                "which is not installed; give the config as .json") from e
+        return yaml.safe_load(f)
+
+
+def load_yaml_config(path: str) -> tuple[PerchConfig, EnvConfig]:
+    """(PerchConfig, EnvConfig) from one config file's top-level keys."""
+    raw = load_config(path)
+    return PerchConfig.from_yaml_dict(raw), EnvConfig.from_yaml_dict(raw)

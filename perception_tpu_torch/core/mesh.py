@@ -4,17 +4,15 @@ The port's own copy of the host-side parts of `perception_tpu/core/mesh.py`
 that the greedy path needs: `read_mesh`, `preprocess_model`, QEM
 decimation, `MeshModel`, `ModelBank` (morton-ordered, padded triangle
 arrays; the render-LOD re-decimation; surface samples),
-`mesh_model_from_arrays` and `load_model`; and the 3-DoF footprint and
+`mesh_model_from_arrays` and `load_model`; the 3-DoF footprint and
 containment helpers of the search modes (`convex_hull_2d`,
 `points_in_convex_poly`, `MeshModel.circumscribed_radius`,
-`footprint_hull`, `points_inside`, `points_inside_footprint`), host NumPy as
+`footprint_hull`, `points_inside`, `points_inside_footprint`); and the
+ADD / ADD-S point sampler `MeshModel.sample_surface_points`, host NumPy as
 in the JAX package. The same inputs give the same arrays as the JAX package:
 parsing and QEM run in the same C++ implementation (`csrc/mesh_loader.cpp`,
 built by `core/native.py`), and the bank's triangle cap is the port's raster
 constant `MAX_TRIS`.
-
-Not copied yet: the ADD/ADD-S sampler (`sample_surface_points`); it belongs
-to the evaluation slice.
 """
 
 from __future__ import annotations
@@ -156,6 +154,16 @@ class MeshModel:
     def footprint_hull(self) -> np.ndarray:
         """Convex hull [E, 2] of the model's (x, y) vertices, CCW."""
         return convex_hull_2d(self.tri_verts.reshape(-1, 3)[:, :2])
+
+    def sample_surface_points(self, max_points: int = 4096) -> np.ndarray:
+        """Vertices of the (undecimated) mesh, subsampled — for ADD/ADD-S."""
+        src = (self.full_tri_verts if self.full_tri_verts is not None
+               else self.tri_verts)
+        pts = np.unique(src.reshape(-1, 3), axis=0)
+        if len(pts) > max_points:
+            step = int(np.ceil(len(pts) / max_points))
+            pts = pts[::step]
+        return pts.astype(np.float32)
 
     def points_inside(self, points: np.ndarray,
                       transform: np.ndarray | None = None,

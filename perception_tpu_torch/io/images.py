@@ -1,5 +1,6 @@
-"""PNG images without OpenCV or PIL: a reader for the CLI's depth, mask and
-colour inputs and a writer for tests and synthetic scenes.
+"""PNG images without OpenCV or PIL: a reader for the CLI's and the camera
+loop's depth, mask and colour inputs, and a writer (to a file or to bytes)
+for synthetic scenes, the service's pose overlay and tests.
 
 Standard library (`zlib`) and numpy only. The reader takes 8- and 16-bit
 greyscale, RGB and RGBA, not interlaced, with any of the five scanline
@@ -79,7 +80,11 @@ def read_png(path: str) -> np.ndarray:
     """Decode a PNG file -> uint8 / uint16 array [H, W] (grey) or [H, W, C]
     (RGB, RGBA)."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`read_png` of a PNG file's bytes; `path` names it in errors."""
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
@@ -112,6 +117,13 @@ def read_png(path: str) -> np.ndarray:
 def write_png(path: str, img: np.ndarray) -> None:
     """Encode a uint8 / uint16 array [H, W] or [H, W, C] (C = 3, 4) as a PNG
     file (filter 0 on every row, zlib level 6)."""
+    data = encode_png(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The bytes of `write_png`'s file for `img`."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
         raise TypeError(f"write_png: dtype {img.dtype}, expected uint8 or "
@@ -130,7 +142,6 @@ def write_png(path: str, img: np.ndarray) -> None:
                                                                        crc)
 
     ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + chunk(b"IEND", b""))
+    return (_SIGNATURE + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))

@@ -34,22 +34,27 @@ scorer's order of operations:
        samples; otherwise (`cost_cloud` "render", the model source, the
        coarse pass) a re-render at the adjusted poses
     -> cost: a fused kernel, depth only or colour-gated (CIEDE2000) on Lab;
-       for cost types 1 / 3 without the face Lab table, the composed cost
-       (the 1-NN kernel, then the gate on RGB converted per point)
+       for cost types 1 / 3 without the face Lab table or above the colour
+       caps, the composed cost (the 1-NN kernel, then the gate on RGB
+       converted per point)
     -> total cost.
 
 The same `ScorerConfig` (field names and defaults as the JAX one) selects the
 path. As in the JAX scorer, the backend changes only the raster: ICP and cost
 run the same kernels under every backend. Backend "xla" raises (in the
-raster). The fused cost kernels take any cloud size: the JAX package's
-switch to its composed cost above 2048 points per pose is a cap of the TPU's
-VMEM and is not ported.
+raster).
 
 The colour-gated fused cost (types 1 / 3, with `bank_tri_lab`) compares Lab
 colours: on the ROI path the cost kernel looks up each point's rendered Lab
 from its winning face id (the face ids of the render that made the cost
 cloud); on the full-frame path the raster draws the Lab face colours, so the
-cloud's colour channel holds Lab.
+cloud's colour channel holds Lab. It runs only within the JAX scorer's caps
+of its fused cost: a cloud capacity (ROI pixels or `max_points_per_pose`,
+plus the explain-only samples) of at most FUSED_MAX_POINTS and at most
+FUSED_MAX_TARGETS cost targets. Above them the colour cost is the composed
+one on RGB, as in the JAX scorer, and the gate's result is the JAX
+package's. The depth-only fused kernel takes any size: its counts equal the
+composed depth cost's (tests/test_torch_deploy.py holds it at P > 2048).
 """
 
 from __future__ import annotations
@@ -79,6 +84,11 @@ from perception_tpu_torch.ops.pointcloud import (
     depth_to_cloud_roi,
 )
 from perception_tpu_torch.ops.rasterizer import render_pose_batch
+
+# The JAX scorer's caps of its fused cost (perception_tpu/pipeline/
+# scorer.py, p_cap and sc): above them it takes the composed cost, on RGB.
+FUSED_MAX_POINTS = 2048
+FUSED_MAX_TARGETS = 4096
 
 
 @dataclasses.dataclass
@@ -368,12 +378,18 @@ def score_pose_batch(
             observed_total, cost_valid.sum(dim=1).to(observed_total.dtype))
 
     # The colour gate compares Lab: in a fused kernel with the face Lab
-    # table, else in the composed cost, which converts RGB per point. ROI
-    # clouds keep pixel == point order, so the fused kernel looks the
-    # rendered Lab up by face id; full-frame clouds are compacted, so the
-    # raster draws Lab face colours instead.
+    # table within the JAX caps, else in the composed cost, which converts
+    # RGB per point. ROI clouds keep pixel == point order, so the fused
+    # kernel looks the rendered Lab up by face id; full-frame clouds are
+    # compacted, so the raster draws Lab face colours instead.
+    p_cap = (cfg.roi_shape[0] * cfg.roi_shape[1] if cfg.roi_shape
+             else cfg.max_points_per_pose)
+    if cfg.cost_cloud == "transform" and bank_icp_samples is not None:
+        aug_k = bank_icp_samples.shape[1]
+        p_cap += min(aug_k, cfg.cost_aug_samples or aug_k)
     color = cfg.cost_type in (1, 3)
-    fused_color = color and bank_tri_lab is not None
+    fused_color = (color and bank_tri_lab is not None
+                   and p_cap <= FUSED_MAX_POINTS and sc <= FUSED_MAX_TARGETS)
     tri_color = fused_color and cfg.roi_shape is not None
     render_colors = (bank_tri_lab if fused_color and not tri_color
                      else bank_tri_colors)

@@ -120,9 +120,13 @@ def test_pose_refinement_rounds_match_jax():
     test_pipeline.test_pose_refinement_rounds_improve_rotation's scene (a
     candidate rotated by (0.18, -0.12, 0.15) rad): the same refined winner,
     better than the unrefined one. Scored without ICP: under that test's 8
-    ICP iterations, 2 of the first round's 16 rotations take chaotic
-    trajectories (the packages end them 79 and 36 mm apart) and one of them
-    passes the |target - source| < 30 filter on one side only."""
+    ICP iterations, 2 of the first round's 16 rotations end 79 and 36 mm
+    apart in the two packages and one of them passes the |target - source|
+    < 30 filter on one side only. Unlike the scorer's seeded cases
+    (tests/test_torch_scorer.py, POSE_CROP_DIVERGENT), those rotations
+    cannot be excluded by index: the env generates them inside the round
+    and takes the argmin over all of them, so one divergent rotation
+    changes which winner the round keeps."""
     jenv = make_env()
     jenv.env = dataclasses.replace(
         jenv.env, icp_mode="fused", kernel_backend="pallas_direct_interpret",

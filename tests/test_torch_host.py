@@ -319,6 +319,19 @@ def test_port_sources_import_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+def test_port_sources_need_no_cv2_pil_or_yaml():
+    """The card machine has no cv2, PIL or yaml: no module of the port nor
+    chip_smoke.py imports cv2 or PIL, and only the config reader
+    (core/config.py, inside the function that reads a .yaml file) imports
+    yaml."""
+    files = sorted((REPO / "perception_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    found = {(str(f.relative_to(REPO)), name.split(".")[0]) for f in files
+             for name in _imports(f)
+             if name.split(".")[0] in ("cv2", "PIL", "yaml")}
+    assert found == {("perception_tpu_torch/core/config.py", "yaml")}, found
+
+
 def test_chip_smoke_imports_without_the_jax_package():
     code = ("import sys\n"
             "import chip_smoke\n"

@@ -158,9 +158,10 @@ def test_localize_round_trip_matches_jax(jax_env):
     assert out["stats"]["scenes_rendered"] == 14
 
 
-def test_unported_service_paths_answer_with_errors(jax_env):
-    """/overlay.png is not ported (501); an unknown mode is an error (500).
-    The "tree" and "greedy_icp" modes run: test_search_modes_round_trip."""
+def test_overlay_and_unknown_mode_answer_like_jax(jax_env):
+    """/overlay.png answers 404 before the first localisation and a PNG
+    after it (as the JAX service); an unknown mode is an error (500). The
+    "tree" and "greedy_icp" modes run: test_search_modes_round_trip."""
     rec = _port_recognizer(jax_env)
     service = LocalizerService(rec)
     with pytest.raises(ValueError, match="unknown mode"):
@@ -179,7 +180,16 @@ def test_unported_service_paths_answer_with_errors(jax_env):
         assert "unknown mode" in json.loads(err.value.read())["error"]
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(f"{url}/overlay.png", timeout=30)
-        assert err.value.code == 501
+        assert err.value.code == 404
+        req = urllib.request.Request(
+            f"{url}/localize",
+            data=json.dumps(_payload(jax_env, _pose_lists())).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert json.loads(resp.read())["detections"]
+        with urllib.request.urlopen(f"{url}/overlay.png", timeout=30) as resp:
+            assert resp.status == 200
+            assert resp.headers["Content-Type"] == "image/png"
+            assert resp.read().startswith(b"\x89PNG")
     finally:
         server.shutdown()
         server.server_close()
