@@ -58,6 +58,19 @@ too within 1 mm of the port's CPU-twin detections, /status, / and
 FrameWatcher, whose detections must equal the served ones; the first
 frame's raster, ICP and cost and the first scene's render are held against
 their twins at these shapes, and the frame's batch as a slice.
+Then the rest of the package: the depth ROI batch split across ranks
+(`perception_tpu_torch.parallel.run` processes: one rank over NCCL, two
+sharing the card over gloo; 2048 and 2047 poses, every field equal to
+score_pose_batch's), the YCB-Video driver at full width (the zoo models as
+PLY files under YCB names, the deploy scenes written in the YCB layout and
+read back, run_dataset with about 2048 candidates per frame and its
+accuracy.json, the first frame in "detections" mask mode and with the
+colour cost, run_on_conveyor with warm start; the first frame's raster, ICP
+and cost and the colour frame's cost held against their twins, the batch as
+a slice; every object at least half unoccluded within 20 mm), the view
+generator on the zoo PLYs (42 views at 150x150, its raster against the
+twin) and VFH (trained on the bench models on the card; a rendered view
+finds its model).
 The 1-NN kernel, the three
 rasters and the keys path's setup, the fused ICP (every mode) and the three
 cost kernels are also held against their twins at edge shapes (several
@@ -121,16 +134,25 @@ import torch
 
 from perception_tpu_torch import cli
 from perception_tpu_torch.camera_loop import FrameWatcher
+from perception_tpu_torch.core.config import EnvConfig, PerchConfig
 from perception_tpu_torch.core.pose import CAM_TO_BODY, ContPose, quat_to_matrix
 from perception_tpu_torch.core.state import ObjectState
-from perception_tpu_torch.eval import metrics, table_scene
+from perception_tpu_torch.eval import metrics, table_scene, workloads
+from perception_tpu_torch.eval import ycb as ycb_mod
 from perception_tpu_torch.eval.bench_scene import (
     BenchProblem,
     bench_meshes,
     build_bench_problem,
 )
-from perception_tpu_torch.eval.dataset_gen import DatasetGenerator, write_zoo_plys
+from perception_tpu_torch.eval.dataset_gen import (
+    DatasetGenerator,
+    write_ycb_layout,
+    write_zoo_plys,
+)
+from perception_tpu_torch.eval.fat import _rle_encode
+from perception_tpu_torch.eval.model_zoo import zoo_raw_geometry
 from perception_tpu_torch.eval.table_scene import build_table_scene
+from perception_tpu_torch.eval.vfh import VFHPoseEstimator
 from perception_tpu_torch.eval.ycb import YCB_CAMERA, generate_candidates
 from perception_tpu_torch.io.images import decode_png, write_png
 from perception_tpu_torch.kernels import build
@@ -147,14 +169,20 @@ from perception_tpu_torch.ops import (
     rasterizer,
 )
 from perception_tpu_torch.ops import icp as icp_ops
+from perception_tpu_torch.parallel import run as shard_run
 from perception_tpu_torch.pipeline import env as pipeline_env
 from perception_tpu_torch.pipeline import scorer
+from perception_tpu_torch.pipeline.env import PerceptionEnv, RecognitionInput
 from perception_tpu_torch.pipeline.heuristics import (
     Detection,
     DetectionHeuristicFactory,
 )
 from perception_tpu_torch.pipeline.mha_star import MHAStarPlanner
-from perception_tpu_torch.pipeline.recognizer import ObjectRecognizer
+from perception_tpu_torch.pipeline.recognizer import (
+    ModelSpec,
+    ObjectRecognizer,
+)
+from perception_tpu_torch.tools import view_generator
 from perception_tpu_torch.pipeline.search import TreeSearch
 from perception_tpu_torch.serve import (
     LocalizerService,
@@ -2521,6 +2549,446 @@ def check_fine_color(dev) -> dict:
     check_slice(fine_bp, "colour fine re-score")
     return res["nn1_batch"], counts
 
+# -- Section 11: the pose split, the YCB driver, the view generator, VFH -----
+
+SHARD_COUNTS = (N_POSES, N_POSES - 1)   # the second pads on two ranks
+# The YCB sweep's models: the zoo shapes as PLY files, under YCB-Video class
+# names where the zoo has the object (the names pick the rotation sampler's
+# symmetry mode and ADD-S, as on the real dataset).
+YCB_NAMES = {"025_mug": "mug", "024_bowl": "bowl", "l_bracket": "l_bracket",
+             "elbow": "elbow", "003_cracker_box": "cracker_box",
+             "005_tomato_soup_can": "soup_can"}
+YCB_SYMMETRIC = ("024_bowl", "005_tomato_soup_can")
+YCB_CANDIDATES = 2048     # per frame, about: num_samples is chosen for it
+YCB_CASE = "ycb frame"
+YCB_COLOR_CASE = "ycb colour frame"
+VIEWS_CASE = "view bank 150x150"
+# The objects the JAX package itself puts more than 20 mm off in the YCB
+# sweep and the conveyor on the CPU (`python -m
+# tests.test_torch_eval_drivers`: the same scenes, files and candidates;
+# 61.3, 194.9, 97.4 and 99.4 mm, the port's CPU twins within 1.5 mm of
+# JAX), and the translation (m, camera frame) the port detects for them on
+# the CPU twins: the card's must lie within DEPLOY_TWIN_BAR_M of it.
+YCB_REFERENCE_MISSES = {
+    ("0001", "025_mug"): (-0.12760870368375934, -0.06087804426401176,
+                          0.5886567914594827),
+    ("0002", "003_cracker_box"): (0.2021684336662293, -0.1383395931124688,
+                                  0.696297837793827),
+    ("0002", "005_tomato_soup_can"): (-0.14515933394432068,
+                                      -0.10196056962013245,
+                                      0.6398108415305614),
+    ("0003", "005_tomato_soup_can"): (-0.07743192315101624,
+                                      0.005027569830417634,
+                                      0.7986724346876144)}
+
+
+def check_sharded(bp) -> dict:
+    """The pose split on the card (parallel/run.py ranks as processes): the
+    depth ROI batch at N_POSES and N_POSES - 1 poses, with one rank over
+    NCCL and with two ranks sharing the card over gloo; each rank's
+    gathered result must equal this process's score_pose_batch on every
+    field, bit for bit; then the padding poses on the kernels
+    (check_padding). Returns each rank's JSON lines."""
+    env = bp.env
+    refs = {k: bp.score(n=k) for k in SHARD_COUNTS}
+    sync()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        path = f"{tmp}/batch.pt"
+        shard_run.save_batch(
+            path, bp.args, bp.cfg, bank_backface=env._render_bank[3],
+            bank_icp_samples=env._bank_icp_samples,
+            bank_icp_normals=env._bank_icp_normals,
+            bank_tri_lab=env._render_bank_lab if bp.use_lab else None)
+        for ranks, backend in ((1, "nccl"), (2, "gloo")):
+            rdir = Path(tmp) / backend
+            rdir.mkdir()
+            t0 = time.perf_counter()
+            code, lines = shard_run.launch(
+                ranks, backend, device="cuda", inputs=[path],
+                counts=",".join(map(str, SHARD_COUNTS)), out=str(rdir),
+                timeout=300, rendezvous_dir=tmp)
+            seconds = time.perf_counter() - t0
+            require(code == 0, f"sharded {backend} x{ranks}: exit {code}")
+            require(len(lines) == ranks * len(SHARD_COUNTS)
+                    and all(l["equal_to_one_process"] for l in lines),
+                    f"sharded {backend} x{ranks}: {lines}")
+            for r in range(ranks):
+                saved = torch.load(rdir / f"rank{r}.pt")
+                for k in SHARD_COUNTS:
+                    for f in dataclasses.fields(refs[k]):
+                        require(torch.equal(saved[0, k][f.name],
+                                            getattr(refs[k], f.name).cpu()),
+                                f"sharded {backend} rank {r} at {k} poses: "
+                                f"{f.name} differs from score_pose_batch")
+            out[backend] = lines
+            emit({"phase": "sharded", "backend": backend, "ranks": ranks,
+                  "poses": list(SHARD_COUNTS), "launch_s": seconds,
+                  "ranks_lines": lines})
+    emit({"phase": "sharded_padding", **check_padding(bp)})
+    return out
+
+
+def check_padding(bp, pad: int = 3) -> dict:
+    """The pose split's padding on the kernels: the batch's last `pad`
+    poses replaced by zero poses of model 0, label 0 and total 0. They reach
+    the raster's perspective divide and the ICP: every field finite, their
+    total -1, and the other poses scored as without them."""
+    n = len(bp.candidates) - pad
+    verts, colors, valid, poses, ids, labels, totals, proj, scene = bp.args
+    env = bp.env
+
+    def padded(x):
+        return torch.cat([x[:n], torch.zeros((pad, *x.shape[1:]),
+                                             dtype=x.dtype, device=x.device)])
+
+    out = scorer.score_pose_batch(
+        verts, colors, valid, padded(poses), padded(ids), padded(labels),
+        padded(totals), proj, scene, bp.cfg,
+        bank_backface=env._render_bank[3],
+        bank_icp_samples=env._bank_icp_samples,
+        bank_icp_normals=env._bank_icp_normals,
+        bank_tri_lab=env._render_bank_lab if bp.use_lab else None)
+    ref = bp.score(n=n)
+    sync()
+    fields = dataclasses.fields(out)
+    res = {"padding_poses": pad,
+           "finite": all(bool(torch.isfinite(getattr(out, f.name).float())
+                              .all()) for f in fields),
+           "padding_totals": out.total_cost[n:].tolist(),
+           "others_equal": all(torch.equal(getattr(out, f.name)[:n],
+                                           getattr(ref, f.name))
+                               for f in fields)}
+    require(res["finite"] and res["others_equal"]
+            and all(t == -1 for t in res["padding_totals"]),
+            f"padding poses on the kernels: {res}")
+    return res
+
+
+def ycb_recognizer(root: Path, dev) -> ObjectRecognizer:
+    """The zoo models as PLY files under YCB names, loaded by a recogniser
+    at the deploy phase's configuration (640x480, stride 8, ROI 32, p2p)."""
+    paths = write_zoo_plys(str(root), YCB_NAMES)
+    specs = [ModelSpec(name=n, path=p, symmetric=n in YCB_SYMMETRIC)
+             for n, p in paths.items()]
+    cfg = deploy_config(paths)
+    return ObjectRecognizer(
+        specs, YCB_CAMERA,
+        PerchConfig(**{k: v for k, v in cfg.items()
+                       if k not in ("camera", "model_bank", "env_params")}),
+        EnvConfig(**cfg["env_params"]), use_external_pose_list=True,
+        device=dev)
+
+
+def make_ycb_dataset(root: Path, dev) -> dict:
+    """Three 640x480 scenes of three zoo objects from DEPLOY_SEED with
+    DEPLOY_PLACEMENT, rendered by the generator on `dev`, written in the
+    YCB-Video layout under root/ycb, read back; num_samples for about
+    YCB_CANDIDATES candidates per frame, every frame in one batch. Returns
+    the recogniser, the dataset, scenes, keyframes, frames, num_samples,
+    the candidates per frame and each object's visible share."""
+    rec = ycb_recognizer(root, dev)
+    gen = DatasetGenerator(rec.env, np.random.default_rng(DEPLOY_SEED))
+    scenes = [gen.sample_scene(**DEPLOY_PLACEMENT)
+              for _ in range(DEPLOY_SCENES)]
+    # Each object's pixels in the scene against its render alone.
+    visible = [[(int((sc.label == j + 1).sum())
+                 / max(1, int((rec.env.render_composite([s])[2] > 0).sum())))
+                for j, s in enumerate(sc.states)] for sc in scenes]
+    keyframes = write_ycb_layout(str(root / "ycb"), rec.env, scenes)
+    ds = ycb_mod.YCBVideoDataset(str(root / "ycb"))
+    frames = [ds.load_frame(*k) for k in keyframes]
+
+    def candidates(ns: int) -> list[int]:
+        out = []
+        for f in frames:
+            mask, names = ycb_mod.frame_masks(rec, f)
+            out.append(sum(len(v) for v in ycb_mod.generate_candidates(
+                f.depth, mask, names, f.intrinsics, num_samples=ns).values()))
+        return out
+
+    num_samples = min(range(4, 400, 2), key=lambda ns: abs(
+        np.mean(candidates(ns)) - YCB_CANDIDATES))
+    counts = candidates(num_samples)
+    rec.env.perch = dataclasses.replace(
+        rec.env.perch, gpu_batch_size=-(-max(counts) // 64) * 64)
+    return dict(rec=rec, ds=ds, scenes=scenes, keyframes=keyframes,
+                frames=frames, num_samples=num_samples, candidates=counts,
+                visible=visible)
+
+
+def ycb_errors(data: dict, results: list) -> dict:
+    """Per frame and object: the translation error (m) of the detection's
+    origin (the preprocessed model's, as the deploy bar takes it), ADD,
+    ADD-S and the protocol's error, beside the visible share."""
+    rec = data["rec"]
+    out = {}
+    for f, res, vis, sc in zip(data["frames"], results, data["visible"],
+                               data["scenes"]):
+        rows = {}
+        for j, s in enumerate(sc.states):
+            name = rec.bank.models[s.id].name
+            row = {"visible_share": vis[j], "detected": name in res.errors}
+            if name in res.detected_poses:
+                pre = rec.bank.models[s.id].preprocessing_transform
+                t_gt = (f.gt_poses[name] @ np.linalg.inv(pre))[:3, 3]
+                row.update(
+                    translation=res.detected_poses[name][0, :3].tolist(),
+                    translation_m=float(np.linalg.norm(
+                        res.detected_poses[name][0, :3] - t_gt)),
+                    add_m=res.add_errors[name], adds_m=res.adis_errors[name],
+                    error_m=res.errors[name])
+            rows[name] = row
+        out[f.scene] = rows
+    return out
+
+
+def ycb_misses(errors: dict) -> list:
+    """The objects off the bar: at least half visible and not within
+    DEPLOY_BAR_M, or a reference miss off its CPU-twin detection."""
+    misses = []
+    for scene, rows in errors.items():
+        for name, row in rows.items():
+            twin = YCB_REFERENCE_MISSES.get((scene, name))
+            if twin is not None:
+                row["reference_miss"] = True
+                row["cpu_twin_diff_m"] = (float(np.linalg.norm(
+                    np.subtract(row["translation"], twin)))
+                    if row["detected"] else None)
+                held = (row["cpu_twin_diff_m"] is not None
+                        and row["cpu_twin_diff_m"] <= DEPLOY_TWIN_BAR_M)
+            else:
+                held = row["visible_share"] < 0.5 or (
+                    row["detected"] and row["translation_m"] < DEPLOY_BAR_M)
+            if not held:
+                misses.append(f"{scene}/{name}")
+    return misses
+
+
+def coco_detections(frame, path: Path) -> None:
+    """A COCO detections file of a frame's label-image instances, their
+    masks in the ported RLE (eval/fat._rle_encode)."""
+    anns = []
+    for cid in np.unique(frame.label[frame.label > 0]):
+        mask = frame.label == cid
+        ys, xs = np.nonzero(mask)
+        anns.append({"image_id": 1, "category_id": int(cid), "score": 1.0,
+                     "bbox": [int(xs.min()), int(ys.min()),
+                              int(xs.max() - xs.min() + 1),
+                              int(ys.max() - ys.min() + 1)],
+                     "segmentation": _rle_encode(mask)})
+    h, w = frame.label.shape
+    path.write_text(json.dumps({
+        "images": [{"id": 1, "width": w, "height": h,
+                    "file_name": f"{frame.scene}/{frame.frame}-color.png"}],
+        "annotations": anns,
+        "categories": [{"id": i + 1, "name": n}
+                       for i, n in enumerate(frame.class_list)]}))
+
+
+def check_ycb(dev) -> dict:
+    """The YCB-Video driver at full width: make_ycb_dataset, the depth PNG
+    round trip (half a centimetre), run_dataset over the three keyframes
+    (accuracy.json; per-frame launches), the first frame again in
+    "detections" mask mode (a COCO file of its label image: the same
+    detections) and with use_color_cost (the colour ROI kernel), then
+    run_on_conveyor with warm start over the three frames. The first
+    frame's raster, ICP and cost are held against their twins at its
+    shapes, and its batch as a slice; the colour frame's cost kernel too.
+    Every object at least half unoccluded within 20 mm (reference misses
+    within 1 mm of the port's CPU-twin detection). Returns the kernel
+    phases and the launches of one frame."""
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        data = make_ycb_dataset(root, dev)
+        rec, frames = data["rec"], data["frames"]
+        round_trip = max(float(np.abs(f.depth.astype(np.float64) / 100.0
+                                      - sc.depth).max())
+                         for f, sc in zip(frames, data["scenes"]))
+        emit({"phase": "ycb_dataset", "seconds": time.perf_counter() - t0,
+              "keyframes": data["keyframes"],
+              "objects": [list(f.gt_poses) for f in frames],
+              "num_samples": data["num_samples"],
+              "candidates": data["candidates"],
+              "gpu_batch_size": rec.env.perch.gpu_batch_size,
+              "visible_share": data["visible"],
+              "depth_round_trip_max_cm": round_trip})
+        require(round_trip <= 0.5, f"depth PNG round trip {round_trip} cm")
+
+        # The sweep, each frame's launches and the first frame's calls.
+        launches, twins, results, calls = [], [], [], {}
+        localize = rec.localize_objects_greedy_render
+
+        def counted(rin, pose_lists, output_dir=None):
+            sync()
+            build.reset_counts()
+            with recorded_kernel_calls(BATCH_SITE) as seen:
+                out = localize(rin, pose_lists, output_dir=output_dir)
+            sync()
+            launches.append(dict(build.LAUNCHES))
+            twins.append(sum(build.TWIN_CALLS.values()))
+            if not calls:
+                calls.update(seen)
+            return out
+
+        evaluate = ycb_mod.evaluate_frame
+
+        def recorded(*args, **kwargs):
+            results.append(evaluate(*args, **kwargs))
+            return results[-1]
+
+        rec.localize_objects_greedy_render = counted
+        ycb_mod.evaluate_frame = recorded
+        try:
+            t0 = time.perf_counter()
+            report = ycb_mod.run_dataset(
+                rec, data["ds"], num_samples=data["num_samples"],
+                output_root=str(root / "out"))
+            sweep_s = time.perf_counter() - t0
+        finally:
+            ycb_mod.evaluate_frame = evaluate
+            rec.localize_objects_greedy_render = localize
+        require(json.loads((root / "out" / "accuracy.json").read_text())
+                == json.loads(json.dumps(report)), "accuracy.json")
+        errors = ycb_errors(data, results)
+        misses = ycb_misses(errors)
+        emit({"phase": "ycb_sweep", "frames": len(results),
+              "sweep_s": sweep_s,
+              "frame_runtime_s": [r.runtime for r in results],
+              "report": report, "detections": errors,
+              "launches_per_frame": launches, "twin_calls": twins})
+        require(all(l == {"raster_direct": 1, "icp_fused": 1,
+                          "cost_fused": 1} for l in launches)
+                and not any(twins), f"ycb launches {launches}, twins {twins}")
+        phases = {name: kernel_phase(name, calls[name], YCB_CASE)
+                  for name in DEPTH}
+        args, kwargs = calls["score_pose_batch"]
+        check_slice(BenchProblem(
+            env=rec.env, candidates=[None] * args[3].shape[0], gt=[],
+            args=args[:9], cfg=args[9],
+            use_lab=kwargs.get("bank_tri_lab") is not None), YCB_CASE)
+
+        # The first frame in "detections" mask mode and with colour.
+        frame0 = frames[0]
+        coco = root / "detections.json"
+        coco_detections(frame0, coco)
+        det = ycb_mod.evaluate_frame(
+            rec, frame0, num_samples=data["num_samples"],
+            mask_mode="detections", detections_json=str(coco))
+        same = (det.detected == results[0].detected and all(
+            np.array_equal(det.detected_poses[n], results[0].detected_poses[n])
+            for n in det.detected))
+        emit({"phase": "ycb_detections_mode", "frame": frame0.scene,
+              "detected": det.detected, "errors": det.errors,
+              "equal_to_gt_masks": same})
+        require(same, "detections mode differs from the GT-mask frame")
+        perch = rec.env.perch
+        rec.env.perch = dataclasses.replace(perch, use_color_cost=True)
+        build.reset_counts()
+        try:
+            with recorded_kernel_calls() as color_calls:
+                color = ycb_mod.evaluate_frame(
+                    rec, frame0, num_samples=data["num_samples"])
+            sync()
+        finally:
+            rec.env.perch = perch
+        color_launches = dict(build.LAUNCHES)
+        color_errors = ycb_errors(
+            {**data, "frames": [frame0], "visible": data["visible"][:1],
+             "scenes": data["scenes"][:1]}, [color])
+        emit({"phase": "ycb_colour_frame", "frame": frame0.scene,
+              "launches": color_launches, "detections": color_errors})
+        require(color_launches.get("cost_fused_color_tri", 0) == 1
+                and "cost_fused" not in color_launches,
+                f"colour frame launches {color_launches}")
+        phases["cost_fused_color_tri"] = kernel_phase(
+            "cost_fused_color_tri", color_calls["cost_fused_color_tri"],
+            YCB_COLOR_CASE)
+
+        # The conveyor: the three frames in order, warm-started.
+        t0 = time.perf_counter()
+        conveyor = workloads.run_on_conveyor(
+            rec, frames, num_samples=data["num_samples"], warm_start=True)
+        conveyor_errors = ycb_errors(data, conveyor)
+        conveyor_misses = ycb_misses(conveyor_errors)
+        emit({"phase": "ycb_conveyor", "seconds": time.perf_counter() - t0,
+              "detections": conveyor_errors,
+              "warm_start_rows": [{n: r.tolist() for n, r in
+                                   c.detected_poses.items()}
+                                  for c in conveyor]})
+    require(not misses, f"ycb sweep: objects off the bar: {misses}")
+    require(not conveyor_misses,
+            f"ycb conveyor: objects off the bar: {conveyor_misses}")
+    return {"phases": phases, "launches": launches[0],
+            "color_launches": color_launches}
+
+
+def check_views() -> dict:
+    """tools/view_generator on the zoo PLYs at resolution 150, level 1 (42
+    views), stride 1, on the card: one raster launch per model, its first
+    call held against the twin; every written <name>-views.npz loads with
+    42 poses, 42 clouds and its entropies."""
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        models, out = Path(tmp) / "models", Path(tmp) / "views"
+        models.mkdir()
+        for name in ZOO_NAMES:
+            v, f, c, _ = zoo_raw_geometry(name)
+            write_ply(models / f"{name}.ply", v, f, c)
+        build.reset_counts()
+        t0 = time.perf_counter()
+        with recorded_kernel_calls() as calls:
+            code = view_generator.main([str(models), str(out), "--level=1",
+                                        "--resolution=150"])
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        require(code == 0, f"view_generator exit {code}")
+        require(launches == {"raster_direct": len(ZOO_NAMES)}
+                and not build.TWIN_CALLS, f"view bank launches {launches}")
+        phase = kernel_phase("raster_direct", calls["raster_direct"],
+                             VIEWS_CASE)
+        banks = {}
+        for name in ZOO_NAMES:
+            bank = np.load(out / f"{name}-views.npz")
+            clouds = [k for k in bank.files if k.startswith("cloud_")]
+            require(bank["poses"].shape == (42, 4, 4) and len(clouds) == 42
+                    and bank["entropy"].max() == 1.0,
+                    f"{name}-views.npz: {bank.files}")
+            banks[name] = [len(bank[k]) for k in clouds]
+    emit({"phase": "view_generator", "seconds": seconds,
+          "launches": launches, "points_per_view": banks})
+    return {"phase": phase, "launches": launches}
+
+
+def check_vfh(bp) -> None:
+    """VFH on the bench models: train (30 fibonacci views each at 0.8 m,
+    rendered on the card, k-NN normals on the card), then estimate from a
+    rendered training view of each model: its model must come back."""
+    env0 = bp.env
+    env = PerceptionEnv(env0.bank, env0.camera, env0.perch, env0.env,
+                        device=env0.device)
+    env._input = RecognitionInput(
+        depth_image=np.zeros((env.camera.height, env.camera.width)),
+        cam_to_world=np.eye(4))
+    est = VFHPoseEstimator(env)
+    t0 = time.perf_counter()
+    n = est.train(num_views=30, distance=0.8)
+    sync()
+    train_s = time.perf_counter() - t0
+    require(n == 30 * len(env.bank.models), f"vfh trained {n} views")
+    found = {}
+    for mid, model in enumerate(env.bank.models):
+        entry = [e for e in est.entries if e.name == model.name][7]
+        pts, nrm = est._view_cloud(ObjectState(
+            id=mid, symmetric=False, segmentation_label_id=1,
+            pose=ContPose.from_euler(0, 0, 0.8, 0, entry.pitch, entry.yaw)))
+        found[model.name] = [m.name for m in est.estimate(pts, nrm, k=3)]
+    emit({"phase": "vfh", "views": n, "train_s": train_s,
+          "nearest_views": found})
+    require(all(v[0] == k for k, v in found.items()), f"vfh: {found}")
+
 
 def problem(dev, **kw):
     t0 = time.perf_counter()
@@ -2755,6 +3223,18 @@ def main() -> int:
     fine_color_nn1, fine_color_counts = check_fine_color(dev)
     deploy, deploy_launches, render_launches = check_deploy()
 
+    # 11. The rest of the package: the pose split across ranks (one over
+    # NCCL, two sharing the card over gloo), the YCB-Video driver at full
+    # width (reader, sweep, mask modes, colour, conveyor), the view
+    # generator and VFH.
+    t0 = time.perf_counter()
+    check_sharded(depth)
+    ycb = check_ycb(dev)
+    views = check_views()
+    check_vfh(depth)
+    emit({"phase": "section", "section": 11,
+          "seconds": time.perf_counter() - t0})
+
     # 9. Where a batch's time goes on the device, last: the profiler's CUPTI
     # session is the one process-wide state no other phase changes.
     profile_batch(depth, "depth ROI batch")
@@ -2801,7 +3281,15 @@ def main() -> int:
               f"{DEPLOY_CASE} (request and overlay)")] + [
         entry(name, deploy[name], deploy_launches[name],
               f"p2p, {DEPLOY_CASE}" if name == "icp_fused" else DEPLOY_CASE)
-        for name in ("icp_fused", "cost_fused")]}), flush=True)
+        for name in ("icp_fused", "cost_fused")] + [
+        entry(name, ycb["phases"][name], ycb["launches"][name],
+              f"p2p, {YCB_CASE}" if name == "icp_fused" else YCB_CASE)
+        for name in DEPTH] + [
+        entry("cost_fused_color_tri", ycb["phases"]["cost_fused_color_tri"],
+              ycb["color_launches"]["cost_fused_color_tri"], YCB_COLOR_CASE),
+        entry("raster_direct", views["phase"],
+              views["launches"]["raster_direct"],
+              f"{VIEWS_CASE} (one launch per model)")]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,6 +21,7 @@ import dataclasses
 import cv2
 import numpy as np
 import pytest
+import torch
 
 from perception_tpu.cli import main as jax_cli
 from perception_tpu.core.pose import CAM_TO_BODY
@@ -34,6 +35,17 @@ from perception_tpu_torch.kernels import build
 from tests.test_pipeline import CAM, gt_states, make_env
 from tests.test_search_e2e import _write_box_ply
 from tests.test_torch_scorer import _port_modules
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's PyTorch CPU work on one thread: beside the other
+    test workers, several intra-op threads per process only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 NAMES = ["red_box", "green_box"]
 

@@ -312,11 +312,49 @@ def test_port_sources_import_nothing_of_the_jax_package():
     files = sorted((REPO / "perception_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 25
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    later = {f"perception_tpu_torch/{m}.py" for m in (
+        "parallel/__init__", "parallel/sharding", "parallel/dist",
+        "parallel/run", "tools/view_generator", "eval/ycb",
+        "eval/workloads", "eval/fat", "eval/shapestacks", "eval/dope",
+        "eval/densefusion", "eval/vfh", "eval/demo_frame")}
+    assert later <= scanned, later - scanned
     bad = {str(f.relative_to(REPO)): name for f in files
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "perception_tpu",
                                      "benchmarks")}
     assert not bad, bad
+
+
+# JAX modules whose counterpart lies at another path of the port, or that
+# are not ported by design (the XLA compile cache, a TPU tool).
+ELSEWHERE = {
+    "native/__init__.py": "core/native.py",
+    "native/loader.py": "core/native.py",
+    "ops/pallas_cost.py": "ops/cost_fused.py",
+    "ops/pallas_icp.py": "ops/icp_fused.py",
+    "ops/pallas_knn.py": "ops/knn.py",
+    "ops/pallas_raster.py": "ops/raster_keys.py",
+    "ops/pallas_raster_bin.py": "ops/raster_bin.py",
+    "ops/pallas_raster_direct.py": "ops/raster_direct.py",
+    "utils/compile_cache.py": None,
+}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each module of perception_tpu/ has one in perception_tpu_torch/ at
+    the same path, or where ELSEWHERE says (the Pallas kernels' wrappers,
+    the native loader); only the XLA compile cache has none."""
+    jax_root, port_root = REPO / "perception_tpu", REPO / "perception_tpu_torch"
+    missing = []
+    for f in sorted(jax_root.rglob("*.py")):
+        rel = str(f.relative_to(jax_root))
+        if rel in ELSEWHERE:
+            target = ELSEWHERE[rel]
+            assert target is None or (port_root / target).exists(), rel
+        elif not (port_root / rel).exists():
+            missing.append(rel)
+    assert not missing, missing
 
 
 def test_port_sources_need_no_cv2_pil_or_yaml():

@@ -30,6 +30,17 @@ from perception_tpu_torch.pipeline import scorer as pscorer
 from tests.test_torch_icp import _box_corner_problem
 from tests.test_torch_scorer import _small_problem
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's PyTorch CPU work on one thread: beside the other
+    test workers, several intra-op threads per process only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 T = convert.tensor
 
 

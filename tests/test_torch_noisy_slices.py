@@ -19,12 +19,23 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from perception_tpu.eval import sensor_model as jsensor
 from perception_tpu_torch.eval import sensor_model as psensor
 from perception_tpu_torch.kernels import build
 
 from tests.test_torch_scorer import _score_both
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's PyTorch CPU work on one thread: beside the other
+    test workers, several intra-op threads per process only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("icp_mode,twin,min_equal", [

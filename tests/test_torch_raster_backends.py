@@ -39,6 +39,17 @@ from perception_tpu_torch.pipeline import scorer as pscorer
 from tests.test_torch_raster import CAM, INVALID, _scene
 from tests.test_torch_scorer import _assert_slice_close, _score_both
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's PyTorch CPU work on one thread: beside the other
+    test workers, several intra-op threads per process only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROIS = [None, (24, 24)]
 
 
@@ -360,15 +371,15 @@ def test_keys_slice_matches_jax_direct_and_port_auto(monkeypatch):
     ("pallas_direct", "raster_direct")])
 def test_env_kernel_backend_switch(backend, raster):
     """EnvConfig.kernel_backend reaches the scorer's raster; the observation
-    render keeps the direct kernel."""
+    render (render_composite of the ground truth, the problem's only raster
+    call while it is built) keeps the direct kernel."""
     from perception_tpu_torch.eval.bench_scene import build_bench_problem
 
+    build.reset_counts()
     bp = build_bench_problem(n_poses=6, model_kind="blob", device="cpu",
                              kernel_backend=backend)
-    assert bp.cfg.backend == backend
-    build.reset_counts()
-    bp.env.render_composite(bp.gt)
     assert build.TWIN_CALLS == {"raster_direct": 1}
+    assert bp.cfg.backend == backend
     build.reset_counts()
     scored = bp.env.score_object_states(bp.candidates)
     assert build.TWIN_CALLS[raster] == 1

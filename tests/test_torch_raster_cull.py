@@ -23,6 +23,17 @@ from perception_tpu_torch.eval.bench_scene import bumpy_blob
 from perception_tpu_torch.ops import raster_direct as prd
 from perception_tpu_torch.ops import rasterizer as pras
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's PyTorch CPU work on one thread: beside the other
+    test workers, several intra-op threads per process only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 INVALID = 2**31 - 1
 TILE = 16                      # csrc/raster_direct.cu kTile
 PATCH_W, PATCH_H = 8, 4        # a warp's pixels in a tile

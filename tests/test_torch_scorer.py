@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from perception_tpu.core.pose import ContPose
 from perception_tpu.core.state import ObjectState
@@ -33,6 +34,17 @@ from perception_tpu_torch.kernels import build
 from perception_tpu_torch.pipeline import scorer as pscorer
 
 from tests.test_pipeline import gt_states, make_env
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's PyTorch CPU work on one thread: beside the other
+    test workers, several intra-op threads per process only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -17,6 +17,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from perception_tpu.core.pose import CAM_TO_BODY
 from perception_tpu.io.poses_file import read_output_poses
@@ -29,6 +30,17 @@ from perception_tpu_torch.serve import LocalizerService, serve
 
 from tests.test_pipeline import CAM, gt_states, make_env
 from tests.test_search_e2e import _write_box_ply, jittered_candidates
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run this module's PyTorch CPU work on one thread: beside the other
+    test workers, several intra-op threads per process only contend."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 BATCH = 16
 
