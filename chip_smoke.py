@@ -70,7 +70,17 @@ and cost and the colour frame's cost held against their twins, the batch as
 a slice; every object at least half unoccluded within 20 mm), the view
 generator on the zoo PLYs (42 views at 150x150, its raster against the
 twin) and VFH (trained on the bench models on the card; a rendered view
-finds its model).
+finds its model). Then the switches (section 12): the bench problem built
+under PT_DECIMATE=cluster (bench models and LOD-256 bank by vertex
+clustering) and with the ICP's stagnation streak at 10**9 (the fused ICP
+without its early exit, as the JAX package's PT_ICP_NO_EARLY_EXIT=1), each
+with its raster, ICP and cost against their twins, its slice against the
+CPU twins and the env's greedy pass within 20 mm;
+the clustered bank's borderline triangles at the rasters' area cull; the
+ICP's device time and the batch with early exit on and off in turns; and
+the localize CLI three times with PT_MODEL_CACHE_DIR set (written, read
+back with equal output_poses.txt, written anew under PT_DECIMATE=cluster).
+Every variable it sets is restored.
 The 1-NN kernel, the three
 rasters and the keys path's setup, the fused ICP (every mode) and the three
 cost kernels are also held against their twins at edge shapes (several
@@ -117,6 +127,7 @@ import faulthandler
 import io
 import json
 import math
+import os
 import shutil
 import socket
 import statistics
@@ -1392,49 +1403,56 @@ def write_ply(path: Path, verts: np.ndarray, faces: np.ndarray,
     path.write_text("\n".join(lines) + "\n")
 
 
-def check_cli_path(bp, backend: str) -> dict:
-    """The bench scene as files (the four models as PLY, the observation as
-    PNGs, every candidate in its object's poses.txt, a JSON config with the
-    problem's PerchConfig and EnvConfig, kernel_backend = backend), then
-    `perception_tpu_torch.cli localize --device cuda` in this process.
-    Returns the kernel launches of the run (counts set to 0 just before
-    it)."""
+def write_bench_scene(bp, root: Path, backend: str) -> list:
+    """The bench scene as files under root: the four models as PLY, the
+    observation as PNGs, every candidate in its object's poses.txt, and
+    scene.json with the problem's PerchConfig and EnvConfig
+    (kernel_backend = backend). Returns the model names."""
     env = bp.env
     rin = env._input
     names = [m.name for m in env.bank.models]
+    for name, v, f, colors in bench_meshes(
+            np.random.default_rng(bp.seed), "bumpy1024",
+            env.bank.tri_valid.shape[1]):
+        write_ply(root / f"{name}.ply", v, f, colors)
+    write_png(str(root / "depth.png"),
+              np.rint(rin.depth_image).astype(np.uint16))
+    write_png(str(root / "mask.png"), rin.label_mask.astype(np.uint8))
+    write_png(str(root / "rgb.png"),
+              np.rint(rin.color_image).astype(np.uint8))
+    for i, name in enumerate(names):
+        rows = [[c.pose.x, c.pose.y, c.pose.z, *c.pose.quaternion()]
+                for c in bp.candidates if c.id == i]
+        if rows:
+            (root / "rendered" / name).mkdir(parents=True)
+            np.savetxt(root / "rendered" / name / "poses.txt", rows)
+    config = {
+        "camera": dataclasses.asdict(env.camera),
+        "input": {"depth_image": "depth.png", "color_image": "rgb.png",
+                  "label_mask": "mask.png",
+                  "depth_factor": rin.depth_factor,
+                  "cam_to_world": np.asarray(rin.cam_to_world).tolist(),
+                  "segmented_object_names": rin.segmented_object_names},
+        "model_bank": [{"name": n, "path": f"{n}.ply"} for n in names],
+        "rendered_root_dir": "rendered",
+        "mode": "greedy",
+        "perch_params": dataclasses.asdict(env.perch),
+        "env_params": {**dataclasses.asdict(env.env),
+                       "kernel_backend": backend},
+    }
+    (root / "scene.json").write_text(json.dumps(config))
+    return names
+
+
+def check_cli_path(bp, backend: str) -> dict:
+    """The bench scene as files (`write_bench_scene`), then
+    `perception_tpu_torch.cli localize --device cuda` in this process.
+    Returns the kernel launches of the run (counts set to 0 just before
+    it)."""
     (REPO / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         root = Path(tmp)
-        for name, v, f, colors in bench_meshes(
-                np.random.default_rng(bp.seed), "bumpy1024",
-                env.bank.tri_valid.shape[1]):
-            write_ply(root / f"{name}.ply", v, f, colors)
-        write_png(str(root / "depth.png"),
-                  np.rint(rin.depth_image).astype(np.uint16))
-        write_png(str(root / "mask.png"), rin.label_mask.astype(np.uint8))
-        write_png(str(root / "rgb.png"),
-                  np.rint(rin.color_image).astype(np.uint8))
-        for i, name in enumerate(names):
-            rows = [[c.pose.x, c.pose.y, c.pose.z, *c.pose.quaternion()]
-                    for c in bp.candidates if c.id == i]
-            if rows:
-                (root / "rendered" / name).mkdir(parents=True)
-                np.savetxt(root / "rendered" / name / "poses.txt", rows)
-        config = {
-            "camera": dataclasses.asdict(env.camera),
-            "input": {"depth_image": "depth.png", "color_image": "rgb.png",
-                      "label_mask": "mask.png",
-                      "depth_factor": rin.depth_factor,
-                      "cam_to_world": np.asarray(rin.cam_to_world).tolist(),
-                      "segmented_object_names": rin.segmented_object_names},
-            "model_bank": [{"name": n, "path": f"{n}.ply"} for n in names],
-            "rendered_root_dir": "rendered",
-            "mode": "greedy",
-            "perch_params": dataclasses.asdict(env.perch),
-            "env_params": {**dataclasses.asdict(env.env),
-                           "kernel_backend": backend},
-        }
-        (root / "scene.json").write_text(json.dumps(config))
+        names = write_bench_scene(bp, root, backend)
         stdout = io.StringIO()
         build.reset_counts()
         t0 = time.perf_counter()
@@ -2990,6 +3008,255 @@ def check_vfh(bp) -> None:
     require(all(v[0] == k for k, v in found.items()), f"vfh: {found}")
 
 
+
+# -- Section 12: the decimator and early-exit switches, the model cache ------
+
+CLUSTER_CASE = "clustered bank batch"
+NO_EXIT_CASE = "early exit off batch"
+SWITCHES = ("PT_DECIMATE", "PT_MODEL_CACHE_DIR")
+NO_EARLY_EXIT = {"icp_stagnation_streak": 10**9}   # a streak no run reaches
+DETECTION_BAR_M = 0.02
+
+
+@contextlib.contextmanager
+def switches(**values):
+    """The port's environment switches set as given (None: unset) for the
+    block; every one of SWITCHES is restored after it."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    for k, v in values.items():
+        require(k in SWITCHES, f"unknown switch {k}")
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def area_culls(pargs: tuple, pkw: dict) -> dict:
+    """Of a direct-raster call's (pose, triangle) pairs that pass the
+    validity, facing and depth tests (the twin's setup): those whose screen
+    area is at most raster_direct.AREA_CULL_PX2 (the cull removes them), and those
+    within 10x of it (drawn, but borderline)."""
+    verts16, pose12, model_ids, _, proj12 = pargs
+    ok, area = raster_direct._triangle_setup(
+        verts16, pose12, model_ids, proj12, pkw["width"], pkw["height"],
+        areas=True)
+    cull = raster_direct.AREA_CULL_PX2
+    return {"pairs_tested": int(ok.sum()),
+            "below_area_cull": int((ok & (area <= cull)).sum()),
+            "within_10x_of_cull": int((ok & (area > cull)
+                                       & (area <= 10 * cull)).sum())}
+
+
+def greedy_errors(bp, label: str) -> tuple[dict, dict]:
+    """The env's greedy pass over the problem's candidates (the user's
+    entry point, with the switches of the caller's block): per visible
+    object the chosen pose's translation error (m) to the ground truth,
+    within DETECTION_BAR_M; and the pass's launches (counts set to 0 just
+    before it)."""
+    build.reset_counts()
+    t0 = time.perf_counter()
+    state, _ = bp.env.compute_greedy_poses(bp.candidates, do_icp=True)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    chosen = {s.segmentation_label_id: s.pose for s in state.object_states}
+    seg = bp.env._observed.seg_count.tolist()
+    errors = {}
+    for i, gt in enumerate(bp.gt):
+        if seg[i] == 0:
+            continue                         # out of view (GT object 0)
+        got = chosen.get(gt.segmentation_label_id)
+        require(got is not None, f"{label}: object {i} not detected")
+        errors[i] = float(np.linalg.norm(
+            [got.x - gt.pose.x, got.y - gt.pose.y, got.z - gt.pose.z]))
+    emit({"phase": "greedy", "case": label, "seconds": seconds,
+          "detection_error_mm": {k: v * 1e3 for k, v in errors.items()},
+          "launches": launches})
+    require(all(e < DETECTION_BAR_M for e in errors.values()),
+            f"{label}: detections {errors}")
+    require(all(launches.get(n, 0) > 0 for n in DEPTH),
+            f"{label}: launches {launches}")
+    return errors, launches
+
+
+def icp_iterations(label: str) -> torch.Tensor:
+    """Per pose, the iterations the fused ICP ran on the inputs that
+    kernel_phase held it on for `label` (the twin's counts, which equal
+    the kernel's)."""
+    pargs, pkw = INPUTS["icp_fused", label]
+    return icp_fused.icp_fused_twin(*pargs, **pkw, return_counts=True)[1]
+
+
+def check_switch_variant(dev, label: str, case: str, env: dict,
+                         **kw) -> dict:
+    """The bench problem built (with `kw`) and scored under the switches
+    `env`: each kernel of the depth batch against its twin, the batch as a
+    slice against the CPU twins, and the greedy pass's detections. Returns
+    the problem, the kernel phases and the greedy pass's launches."""
+    with switches(**env):
+        bp = problem(dev, **kw)
+        results, _ = check_kernels(bp, DEPTH, case)
+        check_slice(bp, label)
+        errors, launches = greedy_errors(bp, label)
+    return {"problem": bp, "results": results, "launches": launches,
+            "errors": errors}
+
+
+def check_model_cache(bp) -> None:
+    """The localize CLI three times on the bench scene as files, with
+    PT_MODEL_CACHE_DIR a fresh directory: the first run
+    (PT_DECIMATE=qem) writes one .npz entry per model, the second
+    (PT_DECIMATE unset, which keys as "qem") loads every model from them
+    and writes the same output_poses.txt, the third (PT_DECIMATE=cluster)
+    writes new entries under other keys. Each run's model-load seconds are the
+    recogniser's load_model_cached calls on the host clock."""
+    from perception_tpu_torch.io import model_cache
+    from perception_tpu_torch.pipeline import recognizer
+
+    load_model, cached = model_cache.load_model, recognizer.load_model_cached
+    counts = {"decimated": 0, "seconds": 0.0}
+
+    def counted_load(*a, **k):
+        counts["decimated"] += 1
+        return load_model(*a, **k)
+
+    def timed_cached(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return cached(*a, **k)
+        finally:
+            counts["seconds"] += time.perf_counter() - t0
+
+    (REPO / "build").mkdir(exist_ok=True)
+    runs = []
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root, cache = Path(tmp), Path(tmp) / "model_cache"
+        names = write_bench_scene(bp, root, "auto")
+        model_cache.load_model = counted_load
+        recognizer.load_model_cached = timed_cached
+        try:
+            for run, decimator in enumerate(("qem", None, "cluster")):
+                counts.update(decimated=0, seconds=0.0)
+                stdout = io.StringIO()
+                out = root / f"out{run}"
+                t0 = time.perf_counter()
+                with switches(PT_MODEL_CACHE_DIR=str(cache),
+                              PT_DECIMATE=decimator), \
+                        contextlib.redirect_stdout(stdout):
+                    rc = cli.main(["localize", "--config",
+                                   str(root / "scene.json"), "--output",
+                                   str(out), "--device", "cuda"])
+                sync()
+                require(rc == 0, f"cache run {run}: exit code {rc}")
+                summary = json.loads(
+                    stdout.getvalue().strip().splitlines()[-1])
+                dets = dict(zip(summary["detected"], summary["poses"]))
+                errors_mm = {}
+                for i in (1, 2):
+                    gt = bp.gt[i].pose
+                    errors_mm[names[i]] = 1e3 * float(np.linalg.norm(
+                        np.asarray(dets[names[i]][:3])
+                        - [gt.x, gt.y, gt.z]))
+                runs.append({
+                    "run": run, "PT_DECIMATE": decimator,
+                    "seconds": time.perf_counter() - t0,
+                    "model_load_s": counts["seconds"],
+                    "models_decimated": counts["decimated"],
+                    "entries": sorted(f.name for f in cache.glob("*.npz")),
+                    "poses": (out / "output_poses.txt").read_bytes(),
+                    "detection_error_mm": errors_mm})
+        finally:
+            model_cache.load_model = load_model
+            recognizer.load_model_cached = cached
+    first, second, third = runs
+    emit({"phase": "model_cache", "runs": [
+        {k: v for k, v in r.items() if k != "poses"} for r in runs],
+          "poses_equal_on_read": first["poses"] == second["poses"]})
+    n = len(names)
+    require(first["models_decimated"] == n and len(first["entries"]) == n,
+            "the first run writes one entry per model")
+    require(second["models_decimated"] == 0
+            and second["entries"] == first["entries"],
+            "the second run reads every model from the cache")
+    require(first["poses"] == second["poses"],
+            "output_poses.txt equal when read from the cache")
+    require(third["models_decimated"] == n
+            and len(third["entries"]) == 2 * n
+            and set(first["entries"]) < set(third["entries"]),
+            "PT_DECIMATE=cluster writes new entries under other keys")
+    for r in runs:
+        require(all(e < DETECTION_BAR_M * 1e3
+                    for e in r["detection_error_mm"].values()),
+                f"cache run {r['run']}: {r['detection_error_mm']}")
+
+
+def check_switches(dev, depth) -> dict:
+    """Section 12: the bench problem (a) on the clustered bank
+    (PT_DECIMATE=cluster: bench models and LOD-256 bank) and (b) with the
+    ICP's early exit off (EnvConfig.icp_stagnation_streak 10**9, what the
+    JAX package's PT_ICP_NO_EARLY_EXIT=1 sets) on the default bank; the
+    ICP's device time and the batch with early exit on and off side by
+    side; the model cache through the CLI. Returns the two variants."""
+    t0 = time.perf_counter()
+    before = {k: os.environ.get(k) for k in SWITCHES}
+    clustered = check_switch_variant(dev, "clustered bank", CLUSTER_CASE,
+                                     {"PT_DECIMATE": "cluster"})
+    cbank = clustered["problem"].env
+    emit({"phase": "clustered_bank",
+          "bench_triangles": cbank.bank.tri_valid.sum(1).tolist(),
+          "lod_triangles": cbank._render_bank[2].sum(1).tolist(),
+          "area_cull": area_culls(*INPUTS["raster_direct", CLUSTER_CASE]),
+          "default_bank_area_cull": area_culls(
+              *INPUTS["raster_direct", ROI_CASE])})
+    no_exit = check_switch_variant(dev, "early exit off", NO_EXIT_CASE, {},
+                                   env_overrides=NO_EARLY_EXIT)
+    require(no_exit["problem"].cfg.icp_stagnation_streak == 10**9,
+            "the streak reaches the scorer configuration")
+    on, off = icp_iterations(ROI_CASE), icp_iterations(NO_EXIT_CASE)
+    max_it = INPUTS["icp_fused", NO_EXIT_CASE][1]["max_iterations"]
+    # Without the stagnation exit a pose follows the same steps until that
+    # exit would have stopped it, then goes on: never fewer iterations.
+    require(bool((off >= on).all()) and off.float().mean() > on.float().mean(),
+            "early exit off: no pose runs fewer iterations, the mean rises")
+    # The ICP's device time and the whole batch with early exit on and off,
+    # in turns (on, off, off, on, on, off).
+    icp = {c: INPUTS["icp_fused", c] for c in (ROI_CASE, NO_EXIT_CASE)}
+    launch = KERNELS["icp_fused"].launch
+    bp_off = no_exit["problem"]
+    ab = {"icp_device_ms_on": [], "icp_device_ms_off": [],
+          "batch_ms_on": [], "batch_ms_off": []}
+    for tag in ("on", "off", "off", "on", "on", "off"):
+        pargs, pkw = icp[ROI_CASE if tag == "on" else NO_EXIT_CASE]
+        ab[f"icp_device_ms_{tag}"].append(
+            device_ms(lambda: launch(*pargs, **pkw)))
+        bp = depth if tag == "on" else bp_off
+        ab[f"batch_ms_{tag}"].append(
+            statistics.median(event_times(bp.score, warmup=1, reps=10)))
+    emit({"phase": "early_exit_ab", **ab,
+          "iterations_on": {"mean": on.float().mean().item(),
+                            "max": int(on.max())},
+          "iterations_off": {"mean": off.float().mean().item(),
+                             "max": int(off.max()),
+                             "poses_at_max": int((off == max_it).sum()),
+                             "poses": len(off)},
+          "icp_device_ratio_off_on": statistics.median(
+              ab["icp_device_ms_off"]) / statistics.median(
+              ab["icp_device_ms_on"])})
+    check_model_cache(depth)
+    emit({"phase": "section", "section": 12,
+          "seconds": time.perf_counter() - t0})
+    require({k: os.environ.get(k) for k in SWITCHES} == before,
+            "section 12 restored the switches")
+    return {"cluster": clustered, "no_exit": no_exit}
+
 def problem(dev, **kw):
     t0 = time.perf_counter()
     bp = build_bench_problem(n_poses=N_POSES, model_kind="bumpy1024",
@@ -3235,6 +3502,13 @@ def main() -> int:
     emit({"phase": "section", "section": 11,
           "seconds": time.perf_counter() - t0})
 
+    # 12. The switches: the bench problem on the clustered bank
+    # (PT_DECIMATE=cluster) and with the ICP's early exit off (stagnation
+    # streak 10**9), each kernel against its twin, the slices and
+    # the greedy detections; the ICP with early exit on and off side by
+    # side; the model cache (PT_MODEL_CACHE_DIR) through three CLI runs.
+    variants = check_switches(dev, depth)
+
     # 9. Where a batch's time goes on the device, last: the profiler's CUPTI
     # session is the one process-wide state no other phase changes.
     profile_batch(depth, "depth ROI batch")
@@ -3289,7 +3563,12 @@ def main() -> int:
               ycb["color_launches"]["cost_fused_color_tri"], YCB_COLOR_CASE),
         entry("raster_direct", views["phase"],
               views["launches"]["raster_direct"],
-              f"{VIEWS_CASE} (one launch per model)")]}), flush=True)
+              f"{VIEWS_CASE} (one launch per model)")] + [
+        entry(name, v["results"][name], v["launches"][name],
+              f"p2p, {case}" if name == "icp_fused" else case)
+        for v, case in ((variants["cluster"], CLUSTER_CASE),
+                        (variants["no_exit"], NO_EXIT_CASE))
+        for name in DEPTH]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

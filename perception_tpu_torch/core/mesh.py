@@ -1,23 +1,26 @@
 """Mesh loading, preprocessing, decimation and the padded model bank.
 
-The port's own copy of the host-side parts of `perception_tpu/core/mesh.py`
-that the greedy path needs: `read_mesh`, `preprocess_model`, QEM
-decimation, `MeshModel`, `ModelBank` (morton-ordered, padded triangle
-arrays; the render-LOD re-decimation; surface samples),
-`mesh_model_from_arrays` and `load_model`; the 3-DoF footprint and
-containment helpers of the search modes (`convex_hull_2d`,
-`points_in_convex_poly`, `MeshModel.circumscribed_radius`,
-`footprint_hull`, `points_inside`, `points_inside_footprint`); and the
-ADD / ADD-S point sampler `MeshModel.sample_surface_points`, host NumPy as
-in the JAX package. The same inputs give the same arrays as the JAX package:
-parsing and QEM run in the same C++ implementation (`csrc/mesh_loader.cpp`,
-built by `core/native.py`), and the bank's triangle cap is the port's raster
-constant `MAX_TRIS`.
+The port's own copy of the host-side parts of `perception_tpu/core/mesh.py`:
+`read_mesh` (through the C++ loader), `preprocess_model`, the two decimators
+behind one switch (`decimate_mode`: the argument, else `$PT_DECIMATE`, else
+"qem"; QEM edge collapse in C++, or `decimate_vertex_clustering`),
+`MeshModel`, `ModelBank` (morton-ordered, padded triangle arrays; the
+render-LOD re-decimation; surface samples), `mesh_model_from_arrays` and
+`load_model`; the 3-DoF footprint and containment helpers of the search
+modes (`convex_hull_2d`, `points_in_convex_poly`,
+`MeshModel.circumscribed_radius`, `footprint_hull`, `points_inside`,
+`points_inside_footprint`); and the ADD / ADD-S point sampler
+`MeshModel.sample_surface_points`, host NumPy as in the JAX package. The
+same inputs and switch give the same arrays as the JAX package: parsing and
+QEM run in the same C++ implementation (`csrc/mesh_loader.cpp`, built by
+`core/native.py`), clustering is a copy of the JAX package's NumPy code, and
+the bank's triangle cap is the port's raster constant `MAX_TRIS`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -62,12 +65,89 @@ def preprocess_model(verts: np.ndarray, mesh_in_mm: bool = False,
     return verts * scale + transform[:3, 3], transform @ flip
 
 
-def decimate(verts, faces, colors, target_triangles: int):
-    """Decimate to <= target_triangles by QEM edge collapse (Garland-Heckbert,
-    in `csrc/mesh_loader.cpp`)."""
+def decimate_vertex_clustering(verts, faces, colors, target_triangles: int):
+    """Vertex-clustering decimation to <= target_triangles, as the JAX
+    package's: snap vertices to a uniform grid (binary search on the cells
+    along the longest axis, 2-512), merge each cell's vertices at their
+    mean (colours alike, truncated to uint8), drop faces that collapse and
+    duplicate faces (orientation kept; `np.unique` sorts the survivors)."""
+    if len(faces) <= target_triangles:
+        return verts, faces, colors
+    extent = float((verts.max(axis=0) - verts.min(axis=0)).max())
+    lo_cells, hi_cells = 2, 512
+
+    def cluster(num_cells: int):
+        cell = extent / num_cells
+        keys = np.floor((verts - verts.min(axis=0)) / cell).astype(np.int64)
+        # The inverse's shape for axis=0 differs between NumPy 2.x releases.
+        _, inverse = np.unique(keys, axis=0, return_inverse=True)
+        inverse = inverse.reshape(-1)
+        n_clusters = inverse.max() + 1
+        sums = np.zeros((n_clusters, 3))
+        counts = np.zeros(n_clusters)
+        np.add.at(sums, inverse, verts)
+        np.add.at(counts, inverse, 1)
+        new_verts = sums / counts[:, None]
+        new_colors = None
+        if colors is not None:
+            csums = np.zeros((n_clusters, 3))
+            np.add.at(csums, inverse, colors.astype(np.float64))
+            new_colors = (csums / counts[:, None]).astype(np.uint8)
+        new_faces = inverse[faces]
+        keep = ((new_faces[:, 0] != new_faces[:, 1])
+                & (new_faces[:, 1] != new_faces[:, 2])
+                & (new_faces[:, 0] != new_faces[:, 2]))
+        return new_verts, np.unique(new_faces[keep], axis=0), new_colors
+
+    best = None
+    while lo_cells <= hi_cells:
+        mid = (lo_cells + hi_cells) // 2
+        nv, nf, nc = cluster(mid)
+        if len(nf) <= target_triangles:
+            best = (nv, nf, nc)
+            lo_cells = mid + 1
+        else:
+            hi_cells = mid - 1
+    if best is None:
+        best = cluster(2)
+        if len(best[1]) > target_triangles:
+            best = (best[0], best[1][:target_triangles], best[2])
+    return best
+
+
+def decimate_qem(verts, faces, colors, target_triangles: int):
+    """QEM edge-collapse decimation (Garland-Heckbert, in
+    `csrc/mesh_loader.cpp`: the C++ implementation the JAX package's
+    `decimate` prefers)."""
     if len(faces) <= target_triangles:
         return verts, np.asarray(faces, np.int64), colors
     return native.decimate_qem(verts, faces, colors, target_triangles)
+
+
+DECIMATE_MODES = ("qem", "cluster")
+
+
+def decimate_mode(mode: str | None = None) -> str:
+    """The one resolver of the decimator: mode, else $PT_DECIMATE, else
+    "qem" (an empty variable counts as unset). Every decimation and the
+    model cache's key go through it, so an unset variable and
+    PT_DECIMATE=qem build and hash alike. Where the JAX package clusters
+    for any other value, the port raises."""
+    mode = mode or os.environ.get("PT_DECIMATE") or "qem"
+    if mode not in DECIMATE_MODES:
+        raise ValueError(f"unknown decimator {mode!r}; one of "
+                         f"{DECIMATE_MODES}")
+    return mode
+
+
+def decimate(verts, faces, colors, target_triangles: int,
+             mode: str | None = None):
+    """Decimate to <= target_triangles with the decimator `decimate_mode`
+    resolves: "qem" (`decimate_qem`) or "cluster"
+    (`decimate_vertex_clustering`)."""
+    if decimate_mode(mode) == "qem":
+        return decimate_qem(verts, faces, colors, target_triangles)
+    return decimate_vertex_clustering(verts, faces, colors, target_triangles)
 
 
 def convex_hull_2d(points: np.ndarray) -> np.ndarray:

@@ -3,9 +3,14 @@
 The library is compiled with the host C++ compiler (`$CXX`, else `g++`) on
 first use into `build/perception_tpu_torch/` next to the package, named by a
 hash of the source, and loaded with ctypes. It is host code: mesh parsing and
-QEM decimation, the same implementation the JAX package builds, so both
-packages decimate a model into the same triangles. Without a compiler the
-functions raise; nothing here runs at import time.
+QEM decimation, the same implementation the JAX package builds
+(`perception_tpu/native/loader.py`: its `load_mesh_native`,
+`decimate_qem_native` and `native_available` / `qem_available` are
+`load_mesh`, `decimate_qem` and `library` here, which raises where those
+return False; `load_mesh_native`'s target_faces clustering has no caller
+in the repo and is not bound), so both packages decimate a model into the
+same triangles.
+Without a compiler the functions raise; nothing here runs at import time.
 """
 
 from __future__ import annotations

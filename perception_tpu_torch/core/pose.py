@@ -138,3 +138,9 @@ CAM_TO_BODY = np.array([
     [0.0, -1.0, 0.0, 0.0],
     [0.0, 0.0, 0.0, 1.0],
 ])
+
+
+def world_to_optical_cam(cam_to_world: np.ndarray) -> np.ndarray:
+    """World -> optical-camera matrix that brings poses into the render
+    frame: (cam_to_world @ CAM_TO_BODY)^-1 (search_env.cpp:1535-1541)."""
+    return np.linalg.inv(cam_to_world @ CAM_TO_BODY)

@@ -321,8 +321,9 @@ def build_zoo_models(names: list[str] | None = None,
     density (smooth curved surfaces at thousands of triangles), which
     makes decimation quality *measurable*: the base zoo is 20-504
     triangles, so render-LOD targets >= 512 never touch it. Pair with
-    target_triangles to decimate back down through the QEM decimator (in
-    C++, `csrc/mesh_loader.cpp`; fast enough that no cache is kept)."""
+    target_triangles to decimate back down through the configured decimator
+    (`core/mesh.decimate_mode`, PT_DECIMATE: QEM in C++ or vertex
+    clustering, both fast enough that no cache is kept)."""
     out = []
     for name in (names or list(_ZOO)):
         v, f, c, symmetric = zoo_raw_geometry(name, resolution)

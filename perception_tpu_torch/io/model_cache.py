@@ -2,8 +2,10 @@
 
 The port's own copy of `perception_tpu/io/model_cache.py`: `load_model`'s
 result (parse + decimate + winding analysis) memoised to an .npz keyed by
-the file's identity and the preprocessing arguments, so a
-second process reads one file instead of re-decimating.
+the file's identity, the preprocessing arguments and the decimator
+(`decimate_mode()`, so a QEM load is never served a clustered entry), so a
+second process reads one file instead of re-decimating. The key equals the
+JAX package's for the same file, arguments and decimator.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import os
 
 import numpy as np
 
-from perception_tpu_torch.core.mesh import MeshModel, load_model
+from perception_tpu_torch.core.mesh import MeshModel, decimate_mode, load_model
 
 _CACHE_VERSION = 2
 
@@ -21,14 +23,15 @@ _CACHE_VERSION = 2
 def _cache_key(path: str, kwargs: dict) -> str:
     st = os.stat(path)
     payload = repr((os.path.abspath(path), st.st_size, int(st.st_mtime),
-                    sorted(kwargs.items()), _CACHE_VERSION))
+                    sorted(kwargs.items()), _CACHE_VERSION, decimate_mode()))
     return hashlib.sha256(payload.encode()).hexdigest()[:24]
 
 
 def load_model_cached(path: str, cache_dir: str | None = None,
                       **kwargs) -> MeshModel:
-    """`load_model` with an .npz result cache in cache_dir (None: no
-    caching)."""
+    """`load_model` with an .npz result cache in cache_dir (None:
+    $PT_MODEL_CACHE_DIR; unset, no caching)."""
+    cache_dir = cache_dir or os.environ.get("PT_MODEL_CACHE_DIR")
     if not cache_dir:
         return load_model(path, **kwargs)
     os.makedirs(cache_dir, exist_ok=True)

@@ -22,6 +22,9 @@ from perception_tpu_torch.ops.rasterizer import (
 )
 
 _ID_MASK = MAX_TRIS - 1
+# The setup culls a triangle whose screen area is at most this (px^2), as
+# the kernel does (pallas_raster_direct.py:155).
+AREA_CULL_PX2 = 1e-2
 # Elements of one (pose, pixel, triangle) block in the twin: bounds its
 # temporaries to ~16 MB each.
 _TWIN_BLOCK = 1 << 22
@@ -103,11 +106,13 @@ def launch_kernel(verts16, pose12, model_ids, anchors, proj12, *, width,
 
 
 def _triangle_setup(verts16, pose12, model_ids, proj12, width, height,
-                    finite_guard: bool = False):
+                    finite_guard: bool = False, areas: bool = False):
     """Per-pose triangle coefficients [N, 12, T], in the kernel's order of
     operations (pallas_raster_direct.py:106-207). finite_guard: also cull
     triangles whose w, beta_c or gamma_c coefficients are not finite, as the
-    bin kernel does per triangle (pallas_raster_bin.py:140-144)."""
+    bin kernel does per triangle (pallas_raster_bin.py:140-144). areas:
+    stop at the area cull and return which pairs reach it (valid, facing,
+    in front) [N, T] and their screen areas |base| in px^2 [N, T]."""
     v = verts16[model_ids.long()]                    # [N, 16, T]
     p = [pose12[:, i:i + 1] for i in range(12)]      # [N, 1] each
     pr = [float(x) for x in proj12.tolist()]
@@ -145,7 +150,9 @@ def _triangle_setup(verts16, pose12, model_ids, proj12, width, height,
     e20x, e20y = sx2 - sx0, sy2 - sy0
     e10x, e10y = sx1 - sx0, sy1 - sy0
     base = 0.5 * (e20x * e10y - e10x * e20y)
-    ok = ok & (base.abs() > 1e-2)
+    if areas:
+        return ok, base.abs()
+    ok = ok & (base.abs() > AREA_CULL_PX2)
     sign = torch.where(base >= 0, 1.0, -1.0)
     inv_base = torch.where(ok, 1.0 / torch.where(ok, base, 1.0), 0.0)
     beta_x = -0.5 * e20y * sign

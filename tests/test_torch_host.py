@@ -1,6 +1,8 @@
 """The port's own host modules against the JAX package's originals, the rule
-that the port imports nothing of the JAX package, and the card as the
-default device.
+that the port imports nothing of the JAX package, the audit that it has
+every public name, class member and parameter of the JAX package (but for
+the exclusions by design in NOT_PORTED), and the card as the default
+device.
 
 Copies are held to the originals exactly: configuration fields and
 defaults, poses, model banks built from the same meshes (the same QEM
@@ -155,8 +157,8 @@ def test_bank_and_lod_bank_match_jax(kind):
 
 @pytest.mark.parametrize("target", [64, 300])
 def test_decimate_matches_jax(target):
-    """The port's only decimator is QEM; the JAX package's QEM gives the
-    same mesh."""
+    """With PT_DECIMATE unset the port decimates by QEM, and the JAX
+    package's QEM gives the same mesh."""
     rng = np.random.default_rng(3)
     v, f = jbench.convex_blob(rng, radius=0.05, n_pts=800)
     cols = rng.uniform(0, 255, (len(v), 3))
@@ -356,6 +358,278 @@ def test_every_jax_module_has_a_port_counterpart():
             missing.append(rel)
     assert not missing, missing
 
+
+
+# Why a JAX name has no counterpart in the port. These five are the only
+# reasons: the port does everything else the JAX package does.
+TPU_TRICK = ("a TPU trick: a Pallas tile, grid or group constant, the "
+             "interpreter switch, or a layout for the TPU's vector units")
+XLA_BACKEND = 'backend "xla": the composed XLA path is not ported'
+ONE_PROCESS_PER_CARD = ("one process per card: a rank drives one device, "
+                        "not a mesh of devices")
+XLA_CACHE = "the XLA compile cache"
+NO_CALLER = ("legacy or test-only: nothing in the repo calls it but the "
+             "JAX package's tests or its fallback for a missing C++ "
+             "toolchain, which the port refuses")
+REASONS = (TPU_TRICK, XLA_BACKEND, ONE_PROCESS_PER_CARD, XLA_CACHE,
+           NO_CALLER)
+
+# "module:name" (a top-level name), "module:Class.member", or
+# "module:function(parameter)", all of the JAX package -> the reason.
+NOT_PORTED = {
+    "utils/compile_cache.py": XLA_CACHE,
+    "core/mesh.py:read_ply": NO_CALLER,
+    "core/mesh.py:read_obj": NO_CALLER,
+    "core/mesh.py:read_mesh(prefer_native)": NO_CALLER,
+    "native/loader.py:load_mesh_native(target_faces)": NO_CALLER,
+    "ops/rasterizer.py:render_oracle_numpy": NO_CALLER,
+    # JAX's picks "pallas" on a TPU, else "xla"; the port's "auto" is its
+    # kernel on every device.
+    "ops/rasterizer.py:default_backend": XLA_BACKEND,
+    "pipeline/env.py:PerceptionEnv.set_observation_from_states(noise_std)":
+        NO_CALLER,
+    "ops/color.py:ciede2000_components(kernel_safe)": TPU_TRICK,
+    "ops/cost.py:compute_costs_fused(interpret)": TPU_TRICK,
+    "ops/cost.py:compute_costs_fused(bank_lab8)": TPU_TRICK,
+    "ops/icp.py:icp_point_to_plane_batch(ref_tile)": TPU_TRICK,
+    "ops/icp.py:icp_point_to_plane_batch(backend)": XLA_BACKEND,
+    "ops/icp.py:icp_gicp_batch(ref_tile)": TPU_TRICK,
+    "ops/icp.py:icp_gicp_batch(backend)": XLA_BACKEND,
+    "ops/knn.py:nn1_batch(ref_tile)": TPU_TRICK,
+    "ops/knn.py:knn_self(ref_tile)": TPU_TRICK,
+    "ops/pallas_cost.py:R_TILE": TPU_TRICK,
+    "ops/pallas_cost.py:pack_bank_lab": TPU_TRICK,
+    "ops/pallas_cost.py:nn_cost_fused_pallas(interpret)": TPU_TRICK,
+    "ops/pallas_cost.py:nn_cost_fused_color_pallas(interpret)": TPU_TRICK,
+    "ops/pallas_cost.py:nn_cost_fused_color_tri_pallas(interpret)":
+        TPU_TRICK,
+    "ops/pallas_cost.py:nn_cost_fused_color_tri_pallas(bank_lab8)":
+        TPU_TRICK,
+    "ops/pallas_icp.py:gather_rows_onehot": TPU_TRICK,
+    "ops/pallas_icp.py:icp_fused_pallas(interpret)": TPU_TRICK,
+    "ops/pallas_icp.py:icp_fused_pallas(group)": TPU_TRICK,
+    "ops/pallas_knn.py:Q_TILE": TPU_TRICK,
+    "ops/pallas_knn.py:R_TILE": TPU_TRICK,
+    "ops/pallas_knn.py:nn1_batch_pallas(interpret)": TPU_TRICK,
+    "ops/pallas_raster.py:TILE_PIX": TPU_TRICK,
+    "ops/pallas_raster.py:TRI_CHUNK": TPU_TRICK,
+    "ops/pallas_raster.py:rasterize_keys_pallas(interpret)": TPU_TRICK,
+    "ops/pallas_raster_bin.py:TILE_H": TPU_TRICK,
+    "ops/pallas_raster_bin.py:TILE_W": TPU_TRICK,
+    "ops/pallas_raster_bin.py:SUB_G": TPU_TRICK,
+    "ops/pallas_raster_bin.py:TRI_CHUNK": TPU_TRICK,
+    "ops/pallas_raster_bin.py:rasterize_bin_pallas(interpret)": TPU_TRICK,
+    "ops/pallas_raster_bin.py:rasterize_bin_pallas(sub_g)": TPU_TRICK,
+    "ops/pallas_raster_bin.py:rasterize_bin_pallas(tile_h)": TPU_TRICK,
+    "ops/pallas_raster_bin.py:rasterize_bin_pallas(tile_w)": TPU_TRICK,
+    "ops/pallas_raster_direct.py:TILE_PIX": TPU_TRICK,
+    "ops/pallas_raster_direct.py:TRI_CHUNK": TPU_TRICK,
+    "ops/pallas_raster_direct.py:SUB_BBOX": TPU_TRICK,
+    "ops/pallas_raster_direct.py:SUB_BATCH": TPU_TRICK,
+    "ops/pallas_raster_direct.py:rasterize_direct_pallas(interpret)":
+        TPU_TRICK,
+    "ops/rasterizer.py:render_pose_batch(tile)": TPU_TRICK,
+    "parallel/sharding.py:make_pose_mesh(n_devices)": ONE_PROCESS_PER_CARD,
+    "parallel/sharding.py:make_pose_mesh(devices)": ONE_PROCESS_PER_CARD,
+    "pipeline/scorer.py:ObservedScene.seg_pk_crop": TPU_TRICK,
+}
+
+# Counterparts under another name: "module:name" -> the port's
+# "module:name" (module paths below each package's root), and
+# "module:function(parameter)" -> the port's parameter.
+RENAMED = {
+    "native/loader.py:load_mesh_native": "core/native.py:load_mesh",
+    "native/loader.py:decimate_qem_native": "core/native.py:decimate_qem",
+    "native/loader.py:native_available": "core/native.py:library",
+    "native/loader.py:qem_available": "core/native.py:library",
+    "ops/pallas_cost.py:nn_cost_fused_pallas":
+        "ops/cost_fused.py:nn_cost_fused",
+    "ops/pallas_cost.py:nn_cost_fused_color_pallas":
+        "ops/cost_fused_color.py:nn_cost_fused_color",
+    "ops/pallas_cost.py:nn_cost_fused_color_tri_pallas":
+        "ops/cost_fused_color.py:nn_cost_fused_color_tri",
+    "ops/pallas_icp.py:icp_fused_pallas": "ops/icp_fused.py:icp_fused",
+    "ops/pallas_knn.py:nn1_batch_pallas": "ops/knn.py:nn1_batch",
+    "ops/pallas_raster.py:rasterize_keys_pallas":
+        "ops/raster_keys.py:rasterize_keys",
+    "ops/pallas_raster_bin.py:rasterize_bin_pallas":
+        "ops/raster_bin.py:rasterize_bin",
+    "ops/pallas_raster_direct.py:rasterize_direct_pallas":
+        "ops/raster_direct.py:rasterize_direct",
+    # The port's table packer takes the |base| column alone.
+    "ops/pallas_raster.py:pack_coefficients(aux)": "abs_base",
+}
+
+JAX_ROOT = REPO / "perception_tpu"
+JAX_MODULES = sorted(str(f.relative_to(JAX_ROOT))
+                     for f in JAX_ROOT.rglob("*.py"))
+
+
+def _params(fn: ast.FunctionDef) -> list[str]:
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return [n for n in names if n not in ("self", "cls")]
+
+
+def _jax_surface(rel: str) -> dict:
+    """The public names a JAX module defines at its top level: name ->
+    ("def", parameters) | ("class", {member: parameters or None}) |
+    ("var", None)."""
+    tree = ast.parse((JAX_ROOT / rel).read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = ("def", _params(node))
+        elif isinstance(node, ast.ClassDef):
+            members = {}
+            for b in node.body:
+                if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    if b.name == "__init__" or not b.name.startswith("_"):
+                        members[b.name] = _params(b)
+                elif isinstance(b, ast.AnnAssign) and isinstance(
+                        b.target, ast.Name):
+                    members[b.target.id] = None
+                elif isinstance(b, ast.Assign):
+                    members.update({t.id: None for t in b.targets
+                                    if isinstance(t, ast.Name)})
+            out[node.name] = ("class", {m: p for m, p in members.items()
+                                        if m == "__init__"
+                                        or not m.startswith("_")})
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            out.update({t.id: ("var", None) for t in targets
+                        if isinstance(t, ast.Name)})
+    return {k: v for k, v in out.items() if not k.startswith("_")}
+
+
+def _port_module(rel: str):
+    """The port's module for a path below perception_tpu_torch/."""
+    import importlib
+
+    name = rel[:-3].replace("/", ".")
+    if name.endswith("__init__"):
+        name = name[:-len(".__init__")]
+    return importlib.import_module(
+        "perception_tpu_torch" + ("." + name if name else ""))
+
+
+def _port_params(obj) -> set[str] | None:
+    """Parameter names of a port function, method or class (its
+    __init__); None where there are none to read (a property, data)."""
+    if isinstance(obj, (staticmethod, classmethod)):
+        obj = obj.__func__
+    if isinstance(obj, property) or not callable(obj):
+        return None
+    try:
+        params = inspect.signature(obj).parameters
+    except (TypeError, ValueError):
+        return None
+    return set(params) - {"self", "cls"}
+
+
+def _port_member(cls, name: str):
+    """A class's member as defined (dataclass fields without a default
+    included), or a sentinel where it has none."""
+    if name in getattr(cls, "__dataclass_fields__", {}):
+        return "field"
+    if hasattr(cls, name):
+        return inspect.getattr_static(cls, name)
+    return _MISSING
+
+
+_MISSING = object()
+
+
+def _missing_params(key: str, jax_params: list[str], port_obj) -> list:
+    port = _port_params(port_obj)
+    if port is None:
+        return []
+    out = []
+    for p in jax_params:
+        full = f"{key}({p})"
+        if full in NOT_PORTED:
+            continue
+        if RENAMED.get(full, p) not in port:
+            out.append(full)
+    return out
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_port_has_every_public_name_of_the_jax_module(rel):
+    """Every public top-level name of the JAX module, every public member
+    (method, field, attribute) of its classes, and every parameter of a
+    function or method both packages have, exists in the port's
+    counterpart (the module ELSEWHERE names, or the one RENAMED names for
+    the name), but for NOT_PORTED's entries."""
+    if rel in NOT_PORTED:
+        assert ELSEWHERE.get(rel, rel) is None, rel
+        return
+    port = _port_module(ELSEWHERE.get(rel, rel))
+    missing = []
+    for name, (kind, info) in _jax_surface(rel).items():
+        key = f"{rel}:{name}"
+        if key in NOT_PORTED:
+            continue
+        if key in RENAMED:
+            mod, pname = RENAMED[key].split(":")
+            obj = getattr(_port_module(mod), pname, _MISSING)
+        else:
+            obj = getattr(port, name, _MISSING)
+        if obj is _MISSING:
+            missing.append(key)
+            continue
+        if kind == "def":
+            missing += _missing_params(key, info, obj)
+        elif kind == "class":
+            for member, params in info.items():
+                mkey = f"{key}.{member}"
+                if mkey in NOT_PORTED:
+                    continue
+                pm = _port_member(obj, member)
+                if pm is _MISSING:
+                    missing.append(mkey)
+                elif params is not None:
+                    missing += _missing_params(mkey, params, pm)
+    assert not missing, missing
+
+
+def test_audit_exclusions_are_by_design_and_current():
+    """Every NOT_PORTED entry gives one of the five reasons and names a
+    JAX module, name, member or parameter that exists and that the port
+    lacks; every RENAMED entry names a JAX name and a port name that
+    exist."""
+    for key, reason in NOT_PORTED.items():
+        assert reason in REASONS, key
+        rel, _, rest = key.partition(":")
+        assert (JAX_ROOT / rel).exists(), key
+        if not rest:
+            continue
+        surface = _jax_surface(rel)
+        name, _, param = rest.partition("(")
+        top, _, member = name.partition(".")
+        kind, info = surface[top]
+        port = _port_module(ELSEWHERE.get(rel, rel))
+        if param:
+            params = info[member] if member else info
+            assert param[:-1] in params, key
+        elif member:
+            assert member in info, key
+            assert _port_member(getattr(port, top), member) is _MISSING, key
+        else:
+            assert not hasattr(port, top), key
+    for key, target in RENAMED.items():
+        rel, _, rest = key.partition(":")
+        name, _, param = rest.partition("(")
+        kind, info = _jax_surface(rel)[name]
+        if param:
+            assert param[:-1] in info, key
+            assert target in _port_params(getattr(
+                _port_module(ELSEWHERE.get(rel, rel)), name)), key
+        else:
+            mod, pname = target.split(":")
+            assert hasattr(_port_module(mod), pname), key
 
 def test_port_sources_need_no_cv2_pil_or_yaml():
     """The card machine has no cv2, PIL or yaml: no module of the port nor
