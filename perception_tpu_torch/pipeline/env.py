@@ -76,7 +76,7 @@ from perception_tpu_torch.pipeline.scorer import (
     score_pose_batch,
 )
 from perception_tpu_torch.utils.debug import save_depth_image
-from perception_tpu_torch.utils.stats import EnvStats
+from perception_tpu_torch.utils.stats import EnvStats, span
 
 
 @dataclasses.dataclass
@@ -269,31 +269,39 @@ class PerceptionEnv:
         return img[..., :rows * s:s, :cols * s:s]
 
     def set_input(self, rin: RecognitionInput) -> None:
-        t0 = time.perf_counter()
-        self._input = rin
-        self._disc = Discretizer(
-            x_min=rin.x_min, x_max=rin.x_max, y_min=rin.y_min,
-            y_max=rin.y_max, res=self.env.res, theta_res=self.env.theta_res)
-        stride = int(self.perch.gpu_stride)
-        self._scene, self._observed = self._build_scene(rin, stride)
-        # The finer-stride scene of the coarse-to-fine re-score.
-        self._scene_fine = self._observed_fine = None
-        if self.env.fine_stride and self.env.fine_stride < stride:
-            self._scene_fine, self._observed_fine = self._build_scene(
-                rin, int(self.env.fine_stride))
-        # Host-side world-frame KD-trees for validity checks.
-        valid = self._observed.valid.cpu().numpy()
-        xyz = self._observed.xyz.cpu().numpy()[valid]
-        labels = self._observed.label.cpu().numpy()[valid]
-        pts_world = xyz @ rin.cam_to_world[:3, :3].T + rin.cam_to_world[:3, 3]
-        self._world_points = pts_world
-        self._world_labels = labels
-        self._world_kdtree = cKDTree(pts_world) if len(pts_world) else None
-        self._seg_kdtrees = []
-        for l in range(self.env.max_labels):
-            seg = pts_world[labels == l]
-            self._seg_kdtrees.append(cKDTree(seg) if len(seg) else None)
-        self.stats.input_time = time.perf_counter() - t0
+        with span("env.set_input") as sp:
+            t0 = time.perf_counter()
+            self._input = rin
+            self._disc = Discretizer(
+                x_min=rin.x_min, x_max=rin.x_max, y_min=rin.y_min,
+                y_max=rin.y_max, res=self.env.res,
+                theta_res=self.env.theta_res)
+            stride = int(self.perch.gpu_stride)
+            with span("env.set_input.scene"):
+                self._scene, self._observed = self._build_scene(rin, stride)
+                # The finer-stride scene of the coarse-to-fine re-score.
+                self._scene_fine = self._observed_fine = None
+                if self.env.fine_stride and self.env.fine_stride < stride:
+                    self._scene_fine, self._observed_fine = (
+                        self._build_scene(rin, int(self.env.fine_stride)))
+                valid = self._observed.valid.cpu().numpy()
+                xyz = self._observed.xyz.cpu().numpy()[valid]
+                labels = self._observed.label.cpu().numpy()[valid]
+            # Host-side world-frame KD-trees for validity checks.
+            with span("env.set_input.kdtree"):
+                pts_world = (xyz @ rin.cam_to_world[:3, :3].T
+                             + rin.cam_to_world[:3, 3])
+                self._world_points = pts_world
+                self._world_labels = labels
+                self._world_kdtree = (cKDTree(pts_world) if len(pts_world)
+                                      else None)
+                self._seg_kdtrees = []
+                for l in range(self.env.max_labels):
+                    seg = pts_world[labels == l]
+                    self._seg_kdtrees.append(cKDTree(seg) if len(seg)
+                                             else None)
+            sp.add("points", len(pts_world))
+            self.stats.input_time = time.perf_counter() - t0
 
     def set_observation_from_states(self, states: Sequence[ObjectState],
                                     rng: np.random.Generator | None = None,
@@ -548,44 +556,52 @@ class PerceptionEnv:
         results: list[ScoredState] = []
         batch = int(self.perch.gpu_batch_size)
         rb_verts, rb_colors, rb_valid, rb_backface = self._render_bank
-        for start in range(0, len(states), batch):
-            chunk = list(states[start:start + batch])
-            n = len(chunk)
-            if n < batch:
-                chunk = chunk + [chunk[0]] * (batch - n)
-            poses = np.stack([self.pose_to_camera(s) for s in chunk])
-            ids = np.asarray([s.id for s in chunk], np.int64)
-            labels = np.asarray(
-                [max(s.segmentation_label_id - 1, 0) for s in chunk], np.int64)
-            totals = self._observed_totals(chunk, labels, cloud)
-            dev = self._tensor
-            t0 = time.perf_counter()
-            scores = score_pose_batch(
-                rb_verts, rb_colors, rb_valid,
-                dev(poses, torch.float32), dev(ids), dev(labels),
-                dev(totals, torch.float32), self._proj,
-                scene, cfg, bank_backface=rb_backface,
-                bank_icp_samples=self._bank_icp_samples,
-                bank_icp_normals=self._bank_icp_normals,
-                bank_tri_lab=self._render_bank_lab)
-            total = scores.total_cost.cpu().numpy()
-            rendered = scores.rendered_cost.cpu().numpy()
-            observed = scores.observed_cost.cpu().numpy()
-            diff = scores.points_diff_cost.cpu().numpy()
-            adjusted = scores.adjusted_poses.cpu().numpy()
-            self.stats.gpu_time += time.perf_counter() - t0
-            self.stats.scenes_rendered += n
-            for i, st in enumerate(chunk[:n]):
-                # (100, 100) degenerate diff rule.
-                d = diff[i]
-                if int(rendered[i]) == 100 and int(observed[i]) == 100:
-                    d = 100.0
-                results.append(ScoredState(
-                    state=st, cost=int(total[i]),
-                    target_cost=int(rendered[i]),
-                    source_cost=int(observed[i]),
-                    last_level_cost=int(d),
-                    adjusted_pose_cam=adjusted[i]))
+        with span("env.score") as sp:
+            for start in range(0, len(states), batch):
+                with span("scorer.prepare"):
+                    chunk = list(states[start:start + batch])
+                    n = len(chunk)
+                    if n < batch:
+                        chunk = chunk + [chunk[0]] * (batch - n)
+                    poses = np.stack([self.pose_to_camera(s) for s in chunk])
+                    ids = np.asarray([s.id for s in chunk], np.int64)
+                    labels = np.asarray(
+                        [max(s.segmentation_label_id - 1, 0) for s in chunk],
+                        np.int64)
+                    totals = self._observed_totals(chunk, labels, cloud)
+                dev = self._tensor
+                with span("scorer.batch"):
+                    t0 = time.perf_counter()
+                    scores = score_pose_batch(
+                        rb_verts, rb_colors, rb_valid,
+                        dev(poses, torch.float32), dev(ids), dev(labels),
+                        dev(totals, torch.float32), self._proj,
+                        scene, cfg, bank_backface=rb_backface,
+                        bank_icp_samples=self._bank_icp_samples,
+                        bank_icp_normals=self._bank_icp_normals,
+                        bank_tri_lab=self._render_bank_lab)
+                    total = scores.total_cost.cpu().numpy()
+                    rendered = scores.rendered_cost.cpu().numpy()
+                    observed = scores.observed_cost.cpu().numpy()
+                    diff = scores.points_diff_cost.cpu().numpy()
+                    adjusted = scores.adjusted_poses.cpu().numpy()
+                    self.stats.gpu_time += time.perf_counter() - t0
+                self.stats.scenes_rendered += n
+                sp.add("poses", n)
+                sp.add("batches", 1)
+                sp.add("slots", batch)
+                with span("scorer.results"):
+                    for i, st in enumerate(chunk[:n]):
+                        # (100, 100) degenerate diff rule.
+                        d = diff[i]
+                        if int(rendered[i]) == 100 and int(observed[i]) == 100:
+                            d = 100.0
+                        results.append(ScoredState(
+                            state=st, cost=int(total[i]),
+                            target_cost=int(rendered[i]),
+                            source_cost=int(observed[i]),
+                            last_level_cost=int(d),
+                            adjusted_pose_cam=adjusted[i]))
         return results
 
     # ------------------------------------------------------------------
@@ -628,19 +644,20 @@ class PerceptionEnv:
                         su.adjusted_pose_cam, su.state.id)) for su in top]
                 scored = self.score_object_states(fine_states, do_icp=False,
                                                   fine=True)
-        if collision_ordering and not six_dof:
-            best = self._commit_with_collisions(scored)
-        else:
-            best = {}
-            for su in scored:
-                if su.cost in (-1, -2):
-                    continue
-                if abs(su.target_cost - su.source_cost) >= 30:
-                    continue
-                key = ((su.state.id, su.state.segmentation_label_id)
-                       if six_dof else (su.state.id,))
-                if key not in best or su.cost < best[key].cost:
-                    best[key] = su
+        with span("env.argmin"):
+            if collision_ordering and not six_dof:
+                best = self._commit_with_collisions(scored)
+            else:
+                best = {}
+                for su in scored:
+                    if su.cost in (-1, -2):
+                        continue
+                    if abs(su.target_cost - su.source_cost) >= 30:
+                        continue
+                    key = ((su.state.id, su.state.segmentation_label_id)
+                           if six_dof else (su.state.id,))
+                    if key not in best or su.cost < best[key].cost:
+                        best[key] = su
         if self.env.pose_refinement_rounds and best:
             best = self._refine_winners(best, do_icp, six_dof)
         state = GraphState()
@@ -774,31 +791,40 @@ class PerceptionEnv:
         (x y z qx qy qz qw), validity-pruned."""
         out = []
         names = self._input.segmented_object_names
-        for model_name, arr in pose_lists.items():
-            mid = self.bank.index_of(model_name)
-            model = self.bank.models[mid]
-            label_id = (names.index(model_name) + 1
-                        if model_name in names else 1)
-            for ext_id, row in enumerate(np.asarray(arr)):
-                st = ObjectState(id=mid, symmetric=model.symmetric,
-                                 pose=ContPose.from_quat(*row[:7]),
-                                 segmentation_label_id=label_id,
-                                 external_pose_id=ext_id)
-                if self.is_valid_pose(st):
-                    out.append(st)
+        with span("env.candidates") as sp:
+            for model_name, arr in pose_lists.items():
+                mid = self.bank.index_of(model_name)
+                model = self.bank.models[mid]
+                label_id = (names.index(model_name) + 1
+                            if model_name in names else 1)
+                rows = np.asarray(arr)
+                sp.add("rows", len(rows))
+                for ext_id, row in enumerate(rows):
+                    st = ObjectState(id=mid, symmetric=model.symmetric,
+                                     pose=ContPose.from_quat(*row[:7]),
+                                     segmentation_label_id=label_id,
+                                     external_pose_id=ext_id)
+                    if self.is_valid_pose(st):
+                        out.append(st)
+            sp.add("valid", len(out))
         return out
 
     def generate_successors_3dof(self) -> list[ObjectState]:
         """`grid_3dof`, validity-pruned; then the histogram / voxel pruning
         the EnvConfig enables."""
         env = self.env
-        grid = self.grid_3dof()
-        ok = self.valid_poses(grid)
-        out = [s for s, keep in zip(grid, ok) if keep]
-        if env.histogram_pruning or env.voxel_pruning:
-            out = prune_successors(self, out,
-                                   use_histogram=env.histogram_pruning,
-                                   use_voxels=env.voxel_pruning)
+        with span("env.candidates") as sp:
+            with span("env.candidates.grid"):
+                grid = self.grid_3dof()
+            with span("env.candidates.valid"):
+                ok = self.valid_poses(grid)
+                out = [s for s, keep in zip(grid, ok) if keep]
+            if env.histogram_pruning or env.voxel_pruning:
+                out = prune_successors(self, out,
+                                       use_histogram=env.histogram_pruning,
+                                       use_voxels=env.voxel_pruning)
+            sp.add("rows", len(grid))
+            sp.add("valid", len(out))
         return out
 
     def grid_3dof(self) -> list[ObjectState]:

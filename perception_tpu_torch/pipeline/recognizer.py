@@ -34,6 +34,7 @@ from perception_tpu_torch.io.poses_file import (
 )
 from perception_tpu_torch.pipeline.env import PerceptionEnv, RecognitionInput
 from perception_tpu_torch.pipeline.search import TreeSearch
+from perception_tpu_torch.utils.stats import span
 
 
 @dataclasses.dataclass
@@ -129,10 +130,11 @@ class ObjectRecognizer:
         output_dir: str | None = None,
     ) -> LocalizationResult:
         env = self.env
-        env.set_input(rin)
-        candidates = env.generate_successors_6dof(pose_lists)
-        state, chosen = env.compute_greedy_poses(candidates)
-        result = self._result_from_state(state)
+        with span("recognizer.localize"):
+            env.set_input(rin)
+            candidates = env.generate_successors_6dof(pose_lists)
+            state, chosen = env.compute_greedy_poses(candidates)
+            result = self._result_from_state(state)
         env.stats.update_peak_memory(env.device)
         if output_dir is not None:
             self._write_outputs(output_dir, result, chosen)
@@ -148,26 +150,29 @@ class ObjectRecognizer:
         order (`compute_greedy_poses(collision_ordering=True)` has it;
         ROADMAP.md, Queue 3)."""
         env = self.env
-        t0 = time.perf_counter()
-        env.set_input(rin)
-        scored = env.score_object_states(env.generate_successors_3dof(),
-                                         do_icp=True)
-        best = {}
-        for su in scored:
-            if su.cost < 0:
-                continue
-            mid = su.state.id
-            if mid not in best or su.target_cost < best[mid].target_cost:
-                best[mid] = su
-        state = GraphState()
-        for mid in sorted(best):
-            su = best[mid]
-            state = state.append(ObjectState(
-                id=mid, symmetric=su.state.symmetric,
-                pose=env.camera_to_world_pose(su.adjusted_pose_cam, mid),
-                segmentation_label_id=su.state.segmentation_label_id))
-        env.stats.time = time.perf_counter() - t0
-        result = self._result_from_state(state)
+        with span("recognizer.localize"):
+            t0 = time.perf_counter()
+            env.set_input(rin)
+            scored = env.score_object_states(env.generate_successors_3dof(),
+                                             do_icp=True)
+            with span("env.argmin"):
+                best = {}
+                for su in scored:
+                    if su.cost < 0:
+                        continue
+                    mid = su.state.id
+                    if (mid not in best
+                            or su.target_cost < best[mid].target_cost):
+                        best[mid] = su
+            state = GraphState()
+            for mid in sorted(best):
+                su = best[mid]
+                state = state.append(ObjectState(
+                    id=mid, symmetric=su.state.symmetric,
+                    pose=env.camera_to_world_pose(su.adjusted_pose_cam, mid),
+                    segmentation_label_id=su.state.segmentation_label_id))
+            env.stats.time = time.perf_counter() - t0
+            result = self._result_from_state(state)
         env.stats.update_peak_memory(env.device)
         if output_dir is not None:
             self._write_outputs(output_dir, result, list(best.values()))
@@ -179,13 +184,14 @@ class ObjectRecognizer:
         """The tree search (`TreeSearch(env, **search_kwargs)`) over the
         3-DoF grid candidates."""
         env = self.env
-        t0 = time.perf_counter()
-        env.set_input(rin)
-        search = TreeSearch(env, **search_kwargs)
-        state = search.plan()
-        env.stats.expands = search.stats.expands
-        env.stats.time = time.perf_counter() - t0
-        result = self._result_from_state(state)
+        with span("recognizer.localize"):
+            t0 = time.perf_counter()
+            env.set_input(rin)
+            search = TreeSearch(env, **search_kwargs)
+            state = search.plan()
+            env.stats.expands = search.stats.expands
+            env.stats.time = time.perf_counter() - t0
+            result = self._result_from_state(state)
         env.stats.update_peak_memory(env.device)
         if output_dir is not None:
             self._write_outputs(output_dir, result, [])

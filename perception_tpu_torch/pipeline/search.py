@@ -30,7 +30,7 @@ import torch
 
 from perception_tpu_torch.core.state import GraphState, ObjectState
 from perception_tpu_torch.ops.rasterizer import render_pose_batch
-from perception_tpu_torch.utils.stats import EnvStats
+from perception_tpu_torch.utils.stats import EnvStats, span
 
 
 @dataclasses.dataclass
@@ -264,20 +264,23 @@ class TreeSearch:
                 if not cands:
                     continue
                 self.stats.expands += 1
-                scored = self._score_with_source(
-                    cands, node.source_depth, node.source_label)
-                if node.state.num_objects == 0:
-                    for su, st in zip(scored, cands):
-                        self._root_costs[self._state_key(st)] = (
-                            su.cost if su.cost >= 0 else 10**9)
-                survivors = [su for su in scored if su.cost >= 0]
-                if self.counted_pixels:
-                    for su, (cost, claimed) in zip(
-                            survivors, self._counted_costs(node, survivors)):
-                        expansions.append((node, su, cost, claimed))
-                else:
-                    expansions.extend(
-                        (node, su, su.cost, None) for su in survivors)
+                with span("search.expand") as sp:
+                    sp.add("candidates", len(cands))
+                    scored = self._score_with_source(
+                        cands, node.source_depth, node.source_label)
+                    if node.state.num_objects == 0:
+                        for su, st in zip(scored, cands):
+                            self._root_costs[self._state_key(st)] = (
+                                su.cost if su.cost >= 0 else 10**9)
+                    survivors = [su for su in scored if su.cost >= 0]
+                    if self.counted_pixels:
+                        for su, (cost, claimed) in zip(
+                                survivors,
+                                self._counted_costs(node, survivors)):
+                            expansions.append((node, su, cost, claimed))
+                    else:
+                        expansions.extend(
+                            (node, su, su.cost, None) for su in survivors)
             if not expansions:
                 break
             expansions.sort(key=lambda e: e[0].g + e[2])

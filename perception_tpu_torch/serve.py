@@ -12,15 +12,19 @@ Counterpart of `perception_tpu/serve.py`:
                   -> {"detections": [{"name", "translation",
                                       "quaternion_xyzw", "transform"}],
                       "stats": {"scenes_rendered", "time", "gpu_time",
-                                "decode_time", "expands"}}
+                                "decode_time", "expands", "request_id"}}
     GET /status      the last /localize response
+    GET /trace       with tracing on, the spans of the last 256 requests:
+                     [{"request_id", "spans": [{"name", "start_ns",
+                       "end_ns", "id", "parent", "request", "counters",
+                       "tags"}]}], oldest first; [] with tracing off
     GET / (/index.html)  HTML status page: the last detections and the
                      overlay below them
     GET /overlay.png the last detections rendered over the last observation
                      (404 before the first localisation)
 
     python -m perception_tpu_torch.serve --config scene.json --port 8765 \
-        [--warmup] [--device cuda|cpu]
+        [--warmup] [--device cuda|cpu] [--trace]
 
 "greedy" localises the 6-DoF candidates of `pose_lists`; "tree" (the tree
 search) and "greedy_icp" (the brute-force ICP baseline) search the 3-DoF
@@ -29,7 +33,15 @@ the table at `table_height`. A request with a `label_mask` is a 6-DoF input,
 one without it a 3-DoF input. A `color_image` (0..255 RGB) reaches
 `set_input`, which builds the observed Lab colours that the colour-gated
 cost (`use_color_cost`) reads. `decode_time` is the seconds spent turning
-the JSON lists into arrays.
+the JSON lists into arrays. `request_id` numbers the process's requests; with
+tracing on it is the `request` of the request's spans.
+
+Tracing (`serve(..., trace=True)`, `--trace`; `utils.stats`): each POST is a
+`service.request` span (tag `mode`; counter `error` = 1 on a failed request)
+over `service.read` and `service.json` (counter `bytes`), `service.decode`
+(the region `decode_time` times), the recogniser's `recognizer.localize` and
+its env, scorer and search spans, and `service.reply` (`json.dumps` and the
+write; `bytes`). The garbage collector's passes are `gc` spans.
 
 The overlay blends the detected objects' render (`render_composite` of the
 recogniser's last state, the direct raster kernel on the card) 0.55 over
@@ -55,6 +67,13 @@ import numpy as np
 
 from perception_tpu_torch.io.images import encode_png
 from perception_tpu_torch.pipeline.env import RecognitionInput
+from perception_tpu_torch.utils.stats import (
+    TRACE,
+    next_request_id,
+    set_tracing,
+    span,
+    tracing,
+)
 from perception_tpu_torch.utils.debug import colorize_depth
 
 MODES = ("greedy", "tree", "greedy_icp")
@@ -68,33 +87,40 @@ class LocalizerService:
         self.last_observation: dict | None = None
         self.last_response: dict | None = None
 
-    def handle(self, payload: dict) -> dict:
+    def handle(self, payload: dict, request_id: int | None = None) -> dict:
+        """Localise one request's payload; the reply. `request_id` (default:
+        the process's next) is the reply's `stats.request_id`."""
+        if request_id is None:
+            request_id = next_request_id()
         mode = payload.get("mode", "greedy")
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
-        t0 = time.perf_counter()
-        depth = np.asarray(payload["depth_image"], np.float64)
-        label = (np.asarray(payload["label_mask"], np.int32)
-                 if payload.get("label_mask") is not None else None)
-        color = (np.asarray(payload["color_image"], np.float32)
-                 if payload.get("color_image") is not None else None)
-        cam_to_world = np.asarray(
-            payload.get("cam_to_world") or np.eye(4).tolist(), np.float64)
-        rin = RecognitionInput(
-            depth_image=depth, color_image=color, label_mask=label,
-            depth_factor=float(payload.get("depth_factor", 100.0)),
-            cam_to_world=cam_to_world,
-            segmented_object_names=payload.get(
-                "segmented_object_names",
-                [s.name for s in self.recognizer.specs]),
-            use_external_pose_list=label is not None)
-        # The 3-DoF support-surface region.
-        for field in ("table_height", "x_min", "x_max", "y_min", "y_max"):
-            if field in payload:
-                setattr(rin, field, float(payload[field]))
-        pose_lists = {k: np.asarray(v, np.float64)
-                      for k, v in (payload.get("pose_lists") or {}).items()}
-        decode_time = time.perf_counter() - t0
+        with span("service.decode"):
+            t0 = time.perf_counter()
+            depth = np.asarray(payload["depth_image"], np.float64)
+            label = (np.asarray(payload["label_mask"], np.int32)
+                     if payload.get("label_mask") is not None else None)
+            color = (np.asarray(payload["color_image"], np.float32)
+                     if payload.get("color_image") is not None else None)
+            cam_to_world = np.asarray(
+                payload.get("cam_to_world") or np.eye(4).tolist(), np.float64)
+            rin = RecognitionInput(
+                depth_image=depth, color_image=color, label_mask=label,
+                depth_factor=float(payload.get("depth_factor", 100.0)),
+                cam_to_world=cam_to_world,
+                segmented_object_names=payload.get(
+                    "segmented_object_names",
+                    [s.name for s in self.recognizer.specs]),
+                use_external_pose_list=label is not None)
+            # The 3-DoF support-surface region.
+            for field in ("table_height", "x_min", "x_max", "y_min",
+                          "y_max"):
+                if field in payload:
+                    setattr(rin, field, float(payload[field]))
+            pose_lists = {k: np.asarray(v, np.float64)
+                          for k, v in (payload.get("pose_lists")
+                                       or {}).items()}
+            decode_time = time.perf_counter() - t0
         if mode == "greedy":
             result = self.recognizer.localize_objects_greedy_render(
                 rin, pose_lists)
@@ -122,6 +148,7 @@ class LocalizerService:
                 "gpu_time": stats.gpu_time,
                 "decode_time": decode_time,
                 "expands": stats.expands,
+                "request_id": request_id,
             },
         }
         self.last_response = out
@@ -173,10 +200,13 @@ def status_page(service: LocalizerService) -> str:
             f"{rows}{img}</body></html>")
 
 
-def serve(recognizer, port: int = 8765) -> HTTPServer:
+def serve(recognizer, port: int = 8765, trace: bool = False) -> HTTPServer:
     """An HTTPServer on 127.0.0.1:port (0 = any free port); the caller runs
-    serve_forever() and shutdown()."""
+    serve_forever() and shutdown(). `trace` turns the process's tracing on
+    (`utils.stats.set_tracing`); it stays on after the server closes."""
     service = LocalizerService(recognizer)
+    if trace:
+        set_tracing(True)
 
     class Handler(BaseHTTPRequestHandler):
         def _send(self, code: int, data: bytes, ctype: str) -> None:
@@ -187,25 +217,42 @@ def serve(recognizer, port: int = 8765) -> HTTPServer:
             self.wfile.write(data)
 
         def _reply(self, code: int, body: dict) -> None:
-            self._send(code, json.dumps(body).encode(), "application/json")
+            with span("service.reply") as sp:
+                data = json.dumps(body).encode()
+                sp.add("bytes", len(data))
+                self._send(code, data, "application/json")
 
         def do_POST(self):
             if self.path != "/localize":
                 self.send_error(404)
                 return
             length = int(self.headers.get("Content-Length", 0))
-            try:
-                out = service.handle(json.loads(self.rfile.read(length)))
-            except Exception as exc:   # report errors to the client
-                self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
-                return
-            self._reply(200, out)
+            request_id = next_request_id()
+            with span("service.request", request=request_id) as req:
+                try:
+                    with span("service.read") as sp:
+                        body = self.rfile.read(length)
+                        sp.add("bytes", len(body))
+                    with span("service.json") as sp:
+                        payload = json.loads(body)
+                        sp.add("bytes", len(body))
+                    if req:
+                        req.tag("mode", payload.get("mode", "greedy"))
+                    out = service.handle(payload, request_id)
+                except Exception as exc:   # report errors to the client
+                    req.add("error", 1)
+                    self._reply(500,
+                                {"error": f"{type(exc).__name__}: {exc}"})
+                    return
+                self._reply(200, out)
 
         def do_GET(self):
             if self.path in ("/", "/index.html"):
                 self._send(200, status_page(service).encode(), "text/html")
             elif self.path == "/status":
                 self._reply(200, service.last_response or {})
+            elif self.path == "/trace":
+                self._reply(200, TRACE.requests() if tracing() else [])
             elif self.path == "/overlay.png":
                 overlay = service.render_overlay()
                 if overlay is None:
@@ -251,13 +298,15 @@ def main(argv: list[str] | None = None) -> int:
                         help="localise one synthetic scene at boot, so the "
                              "first request finds the kernels loaded")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--trace", action="store_true",
+                        help="record spans of every request (GET /trace)")
     args = parser.parse_args(argv)
 
     recognizer = recognizer_from_config(args.config, args.device)
     if args.warmup:
         dt = recognizer.warmup()
         print(f"warmup: serving path ready in {dt:.1f}s", flush=True)
-    server = serve(recognizer, args.port)
+    server = serve(recognizer, args.port, trace=args.trace)
     print(f"perception_tpu_torch localizer on :{args.port}", flush=True)
     try:
         server.serve_forever()
