@@ -76,7 +76,7 @@ from perception_tpu_torch.pipeline.scorer import (
     score_pose_batch,
 )
 from perception_tpu_torch.utils.debug import save_depth_image
-from perception_tpu_torch.utils.stats import EnvStats, span
+from perception_tpu_torch.utils.stats import NO_SPAN, EnvStats, span
 
 
 @dataclasses.dataclass
@@ -155,6 +155,10 @@ class PerceptionEnv:
         self._cyl_radius = np.array([m.inflation_factor
                                      * m.circumscribed_radius
                                      for m in bank.models])
+        # The 6-DoF validity radius, before the grid cell's (_valid_6dof).
+        self._ball_radius = np.array([m.inflation_factor
+                                      * m.circumscribed_radius_3d
+                                      for m in bank.models])
         samp, snrm = bank.surface_samples(self.env.icp_model_samples)
         self._bank_icp_samples = dev(samp, torch.float32)
         self._bank_icp_normals = dev(snrm, torch.float32)
@@ -382,28 +386,44 @@ class PerceptionEnv:
     def valid_poses(self, states: Sequence[ObjectState],
                     placed: GraphState | None = None,
                     after_refinement: bool = False) -> np.ndarray:
-        """is_valid_pose of every state, as a bool array; the 3-DoF tests run
-        batched over the states."""
-        grid_rad = (0.0 if after_refinement
-                    else float(np.hypot(self.env.res / 2, self.env.res / 2)))
+        """is_valid_pose of every state, as a bool array, batched over the
+        states: 6-DoF per (model, label), 3-DoF over them all."""
+        grid_rad = self._grid_rad(after_refinement)
         if self._input is not None and self._input.use_external_pose_list:
-            return np.asarray([self._valid_6dof(s, grid_rad) for s in states],
-                              dtype=bool)
+            ok = np.zeros(len(states), bool)
+            groups: dict[tuple[int, int], list[int]] = {}
+            for i, s in enumerate(states):
+                groups.setdefault((s.id, s.segmentation_label_id),
+                                  []).append(i)
+            for (mid, label_id), idx in groups.items():
+                centres = np.array([[states[i].pose.x, states[i].pose.y,
+                                     states[i].pose.z] for i in idx])
+                ok[idx] = self._valid_6dof(mid, label_id, centres, grid_rad)
+            return ok
         return self._valid_3dof(states, placed, grid_rad)
 
-    def _valid_6dof(self, state: ObjectState, grid_rad: float) -> bool:
-        model = self.bank.models[state.id]
-        p = np.array([state.pose.x, state.pose.y, state.pose.z])
-        rad = max(model.inflation_factor * model.circumscribed_radius_3d,
-                  grid_rad)
+    def _grid_rad(self, after_refinement: bool) -> float:
+        """The grid cell's half diagonal, or 0 after refinement."""
+        return (0.0 if after_refinement
+                else float(np.hypot(self.env.res / 2, self.env.res / 2)))
+
+    def _valid_6dof(self, mid: int, label_id: int, centres: np.ndarray,
+                    grid_rad: float, sp=NO_SPAN) -> np.ndarray:
+        """The 6-DoF rule for poses of model `mid` in segment `label_id`
+        centred at centres [K, 3]: at least min_neighbor_points_for_valid_pose
+        observed points of the segment (of the whole world where the segment
+        has no tree) within the model's inflated 3-D radius, at least
+        grid_rad. One ball query for the K poses, counted on `sp`."""
         tree = None
-        if 0 <= state.segmentation_label_id - 1 < len(self._seg_kdtrees):
-            tree = self._seg_kdtrees[state.segmentation_label_id - 1]
+        if 0 <= label_id - 1 < len(self._seg_kdtrees):
+            tree = self._seg_kdtrees[label_id - 1]
         if tree is None:
             tree = self._world_kdtree
         if tree is None:
-            return False
-        count = len(tree.query_ball_point(p, rad))
+            return np.zeros(len(centres), bool)
+        rad = max(self._ball_radius[mid], grid_rad)
+        sp.add("queries", 1)
+        count = tree.query_ball_point(centres, rad, return_length=True)
         return count >= self.perch.min_neighbor_points_for_valid_pose
 
     def _projected_counts(self, xy: np.ndarray, rad: np.ndarray) -> np.ndarray:
@@ -788,24 +808,40 @@ class PerceptionEnv:
     def generate_successors_6dof(self, pose_lists: dict[str, np.ndarray]
                                  ) -> list[ObjectState]:
         """Candidate object states from per-object pose arrays [K, 7]
-        (x y z qx qy qz qw), validity-pruned."""
+        (x y z qx qy qz qw), validity-pruned as `is_valid_pose` prunes
+        them; on a 6-DoF input by `_valid_6dof` once per object, with states
+        built for the survivors alone, rows in order."""
         out = []
         names = self._input.segmented_object_names
+        six_dof = self._input.use_external_pose_list
+        grid_rad = self._grid_rad(False)
         with span("env.candidates") as sp:
             for model_name, arr in pose_lists.items():
                 mid = self.bank.index_of(model_name)
-                model = self.bank.models[mid]
+                symmetric = self.bank.models[mid].symmetric
                 label_id = (names.index(model_name) + 1
                             if model_name in names else 1)
                 rows = np.asarray(arr)
                 sp.add("rows", len(rows))
-                for ext_id, row in enumerate(rows):
-                    st = ObjectState(id=mid, symmetric=model.symmetric,
-                                     pose=ContPose.from_quat(*row[:7]),
-                                     segmentation_label_id=label_id,
-                                     external_pose_id=ext_id)
-                    if self.is_valid_pose(st):
-                        out.append(st)
+                if not len(rows):
+                    continue
+
+                def state(ext_id: int) -> ObjectState:
+                    return ObjectState(
+                        id=mid, symmetric=symmetric,
+                        pose=ContPose.from_quat(*rows[ext_id, :7]),
+                        segmentation_label_id=label_id,
+                        external_pose_id=ext_id)
+
+                if six_dof:
+                    keep = self._valid_6dof(mid, label_id, rows[:, :3],
+                                            grid_rad, sp)
+                    out += [state(i) for i in np.flatnonzero(keep).tolist()]
+                else:
+                    # A 3-DoF input: the 3-DoF rule over every row's state.
+                    states = [state(i) for i in range(len(rows))]
+                    keep = self.valid_poses(states)
+                    out += [s for s, ok in zip(states, keep) if ok]
             sp.add("valid", len(out))
         return out
 

@@ -275,6 +275,10 @@ def test_greedy_request_span_tree(jax_env):
     assert cands["counters"]["rows"] == sum(
         len(v) for v in payload["pose_lists"].values())
     assert cands["counters"]["valid"] == c["poses"]
+    # One ball query per (model, segment): each object's rows and its label.
+    groups = {(name, payload["segmented_object_names"].index(name))
+              for name, rows in payload["pose_lists"].items() if rows}
+    assert cands["counters"]["queries"] == len(groups) == 2
     (inp,) = _named(spans, "env.set_input")
     assert inp["counters"]["points"] > 0
     for s in spans:
