@@ -50,19 +50,10 @@ def as_reply(ans) -> dict:
         for n, p in zip(ans.names, ans.poses)]}
 
 
-def reference(cell, details, device, quant=None):
-    from portbench.reference.env import Reference
-
-    config = cell.config
-    return Reference(details["bank"], config["camera"], config["perch"],
-                     config["env"], device=device, quant=quant,
-                     batch=config["perch"]["gpu_batch_size"])
-
-
 def control_numbers(cell, details, device) -> dict:
-    from portbench import compare
+    from portbench import compare, harness
 
-    ref = reference(cell, details, device, quant=bf16)
+    ref = harness.reference_for(cell, details["bank"], device, quant=bf16)
     replies = [as_reply(ref.answer(f)) for f in details["frames"]]
     return compare.compare(cell.traffic["mode"], replies, details["answers"],
                            list(range(len(replies))), details["bank"])
@@ -84,10 +75,10 @@ def plain_sums():
 
 def witness_numbers(cell, details, device) -> dict:
     """The program's replies against the reference with plain sums."""
-    from portbench import compare
+    from portbench import compare, harness
 
     with plain_sums():
-        ref = reference(cell, details, device)
+        ref = harness.reference_for(cell, details["bank"], device)
         answers = [ref.answer(f) for f in details["frames"]]
     return compare.compare(cell.traffic["mode"], details["replies"], answers,
                            details["frame_of"], details["bank"])

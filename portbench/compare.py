@@ -15,7 +15,8 @@ Numbers, each the worst over every reply of the run:
                 rendered cost alone in greedy_icp, whose choice it is).
 
 A limit comes from the lower and upper readings recorded in PERF.md; the
-limits live in `limits/<mode>.json`.
+limits live in `limits/<mode>.json`, or in `limits/<config>.<mode>.json`
+for a configuration that has limits of its own.
 """
 
 from __future__ import annotations
@@ -30,8 +31,13 @@ from portbench.reference.geometry import quat_to_matrix
 LIMITS = Path(__file__).resolve().parent / "limits"
 
 
-def limits(mode: str) -> dict:
-    return json.loads((LIMITS / f"{mode}.json").read_text())
+def limits(mode: str, config: str | None = None,
+           where: Path = LIMITS) -> dict:
+    """The configuration's own limits for the mode where it has a file of
+    them, else the mode's."""
+    own = Path(where) / f"{config}.{mode}.json"
+    path = own if config and own.exists() else Path(where) / f"{mode}.json"
+    return json.loads(path.read_text())
 
 
 def reply_transform(det: dict) -> np.ndarray:

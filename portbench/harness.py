@@ -13,7 +13,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import http.client
-import importlib.util
 import json
 import os
 import sys
@@ -21,6 +20,7 @@ import threading
 import time
 from pathlib import Path
 
+from portbench import load_file
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -51,6 +51,8 @@ class Cell:
     traffic: dict
     end_to_end: list[dict]     # BENCHMARK.json entries this cell reports
     per_layer: list[dict]
+    bench: Path = BENCH        # where its scene kind, reference and limits
+                               # files are found by name
 
 
 def load_cell(name: str, benchmark: Path = ROOT / "BENCHMARK.json",
@@ -75,17 +77,25 @@ def load_cell(name: str, benchmark: Path = ROOT / "BENCHMARK.json",
     e2e = [m for m in bm["end_to_end"] if reports(m)]
     moved = {m["name"] for m in e2e}
     layer = [m for m in bm["per_layer"] if reports(m) and m["moves"] in moved]
-    return Cell(name, config, traffic, e2e, layer)
+    return Cell(name, config, traffic, e2e, layer, Path(bench))
 
 
 def reader(metric: str, bench: Path = BENCH):
     """The `read(run)` function of metrics/<metric>.py."""
-    path = bench / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + metric.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(bench / "metrics" / f"{metric}.py",
+                     "portbench_metric").read
+
+
+def reference_for(cell: Cell, bank, device: str, quant=None):
+    """The plain reference the configuration names (`reference`: a module
+    reference/<name>.py with a `Reference` class; `env` by default)."""
+    config = cell.config
+    mod = load_file(cell.bench / "reference"
+                    / f"{config.get('reference', 'env')}.py",
+                    "portbench_reference")
+    return mod.Reference(bank, config["camera"], config["perch"],
+                         config["env"], device=device, quant=quant,
+                         batch=config["perch"]["gpu_batch_size"])
 
 
 @dataclasses.dataclass
@@ -128,7 +138,8 @@ class Run:
 
 # -- the program ------------------------------------------------------------
 
-def build_program(config: dict, mesh_list: list[dict], device: str):
+def build_program(config: dict, mesh_list: list[dict], six_dof: bool,
+                  device: str):
     """The port's recogniser over the configuration's meshes."""
     from perception_tpu_torch.core.config import (
         CameraIntrinsics,
@@ -138,7 +149,6 @@ def build_program(config: dict, mesh_list: list[dict], device: str):
     from perception_tpu_torch.core.mesh import mesh_model_from_arrays
     from perception_tpu_torch.pipeline.recognizer import ObjectRecognizer
 
-    six_dof = config["scene"]["kind"] == "6dof"
     models = []
     for m in mesh_list:
         mm = mesh_model_from_arrays(m["name"], m["verts"], m["faces"],
@@ -231,9 +241,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     from perception_tpu_torch.serve import serve
     from portbench import compare
-    from portbench.reference.env import Reference
     from portbench.scenes.frames import (
         encode,
+        kind,
         make_frames,
         meshes,
         reference_bank,
@@ -241,9 +251,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     on_card = device == "cuda"
     config, traffic = cell.config, cell.traffic
+    scenes = cell.bench / "scenes"
     mesh_list = meshes(config, seed)
-    bank = reference_bank(config, mesh_list)
-    frames = make_frames(config, traffic, bank, seed, device)
+    bank = reference_bank(config, mesh_list, scenes)
+    frames = make_frames(config, traffic, bank, seed, device, scenes)
     # The frames stay arrays while the window runs: nested lists would be
     # millions of objects that every full collection of the program's
     # garbage collector walks (a client in another process adds none).
@@ -251,7 +262,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if on_card:
         from perception_tpu_torch.kernels import build
         build.library()
-    recognizer = build_program(config, mesh_list, device)
+    recognizer = build_program(config, mesh_list, kind(config, scenes)[0],
+                               device)
     server = serve(recognizer, 0)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever,
@@ -312,8 +324,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         raise SystemExit(f"forbidden modules loaded: {', '.join(found)}")
 
     # The reference, once per distinct frame, after the window.
-    ref = Reference(bank, config["camera"], config["perch"], config["env"],
-                    device=device, batch=config["perch"]["gpu_batch_size"])
+    ref = reference_for(cell, bank, device)
     answers, work = [], []
     for f in frames:
         ref.work = type(ref.work)()
@@ -322,7 +333,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     mode = traffic["mode"]
     numbers = compare.compare(mode, [r.reply for r in requests], answers,
                               [r.frame for r in requests], bank)
-    limits = compare.limits(mode)
+    limits = compare.limits(mode, config["name"], cell.bench / "limits")
     ok, lines = compare.verdict(numbers, limits)
     if details is not None:
         details.update(frames=frames, bank=bank, answers=answers,
@@ -331,10 +342,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     run = Run(cell=cell, setup_s=setup_s, window_s=window_s,
               requests=requests, previous_stats=previous, peak_bytes=peak,
-              trace=trace_data, work=work)
+              trace=trace_data, work=work, bench=cell.bench)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
-        value = reader(m["name"])(run)
+        value = reader(m["name"], cell.bench)(run)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     failed = sum(r.reply is None for r in requests)

@@ -46,7 +46,11 @@ class Answer:
 
 class Reference:
     """cfg: the configuration file's `perch`, `env` and `camera` blocks
-    merged with the bank (geometry.Bank), on `device`."""
+    merged with the bank (geometry.Bank), on `device`. A configuration's
+    `reference` may name a module that subclasses this one and swaps
+    `score_batch` alone (same arguments, returns `scorer.Scores`)."""
+
+    score_batch = staticmethod(score_batch)
 
     def __init__(self, bank, camera: dict, perch: dict, env: dict,
                  device: str = "cuda", quant=None, batch: int = 1100):
@@ -261,7 +265,7 @@ class Reference:
         for lo in range(0, len(cands), self.batch):
             chunk = cands[lo:lo + self.batch]
             poses = np.stack([self.to_camera(c) for c in chunk])
-            s = score_batch(
+            s = self.score_batch(
                 self.tensors, dev(poses, torch.float32),
                 dev([c.model for c in chunk], torch.int64),
                 dev([max(c.label - 1, 0) for c in chunk], torch.int64),

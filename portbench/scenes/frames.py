@@ -11,17 +11,20 @@ A 6-DoF frame holds three distinct models drawn from the six, as the
 dataset generator draws them, and each object gets as many depth layers as
 its mask's depth spans: the seed changes the models, their poses and with
 them the number of candidate rows. A 3-DoF frame holds the configuration's
-three models, placed by the table scene's rule.
+three models, placed by the table scene's rule. A configuration's other
+`scene.kind` is a file of its own beside this one (`kind`).
 """
 
 from __future__ import annotations
 
 import json
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from portbench import load_file
 from portbench.reference.geometry import (
     CAM_TO_BODY,
     Bank,
@@ -34,6 +37,7 @@ from portbench.reference.geometry import (
 from portbench.reference.raster import render
 from portbench.scenes import sensor, zoo
 
+SCENES = Path(__file__).resolve().parent
 # (whole sphere, in-plane mode) by YCB name (PERCH 2.0's name_sym_dict).
 YCB_SYMMETRY = {
     "002_master_chef_can": (0, 0), "003_cracker_box": (0, 0),
@@ -107,8 +111,9 @@ def meshes(config: dict, seed: int) -> list[dict]:
     raise ValueError(f"unknown model kind {spec['kind']!r}")
 
 
-def reference_bank(config: dict, mesh_list: list[dict]) -> Bank:
-    six_dof = config["scene"]["kind"] == "6dof"
+def reference_bank(config: dict, mesh_list: list[dict],
+                   scenes: Path = SCENES) -> Bank:
+    six_dof = kind(config, scenes)[0]
     return Bank.build([make_model(m["name"], m["verts"], m["faces"],
                                   six_dof, m["symmetric"])
                        for m in mesh_list])
@@ -201,51 +206,63 @@ def candidates(depth_m, label, names, camera, cam_to_world, rule) -> dict:
     return out
 
 
-def frames_6dof(config, traffic, bank: Bank, seed: int, device) -> list:
+def place_6dof(config, bank: Bank, rng: np.random.Generator, device):
+    """One 6-DoF scene: `num_objects` distinct models drawn from the bank,
+    placed at random positions and orientations until each is in view and
+    shows `min_visible_pixels`. -> (placed (model, world transform), depth
+    (m, 0 empty), 1-based labels, the models' names in label order)."""
     sc, cam = config["scene"], config["camera"]
-    rng = np.random.default_rng([seed, 2])
     names = [m.name for m in bank.models]
+    while True:
+        trio = [names[i] for i in rng.choice(len(names),
+                                             size=sc["num_objects"],
+                                             replace=False)]
+        placed, xy = [], []
+        for name in trio:
+            for _ in range(100):
+                pos = np.array([rng.uniform(*sc["x_range"]),
+                                rng.uniform(*sc["y_range"]),
+                                rng.uniform(*sc["z_range"])])
+                if all(np.linalg.norm(pos[:2] - p) >= sc["min_separation"]
+                       for p in xy):
+                    break
+            else:
+                break
+            xy.append(pos[:2])
+            q = rng.normal(size=4)
+            q /= np.linalg.norm(q)
+            tf = np.eye(4)
+            tf[:3, :3] = quat_to_matrix(*q)
+            tf[:3, 3] = pos
+            placed.append((names.index(name), tf))
+        if len(placed) < len(trio) or not all(
+                _in_view(cam, CAM_TO_BODY, tf[:3, 3]) for _, tf in placed):
+            continue
+        depth, label = render_scene(bank, cam, CAM_TO_BODY, placed, device)
+        if all((label == i + 1).sum() >= sc["min_visible_pixels"]
+               for i in range(len(placed))):
+            return placed, depth, label, trio
+
+
+def request_6dof(config, mode: str, depth_mm, label, trio) -> dict:
+    """A 6-DoF frame's request: depth in mm, the masks, and each object's
+    candidate rows from the depth it is sent with."""
+    rows = candidates(depth_mm / 1000.0, label, trio, config["camera"],
+                      CAM_TO_BODY, config["candidates"])
+    return {
+        "mode": mode, "depth_image": depth_mm.astype(np.int64),
+        "label_mask": label, "depth_factor": 1000.0,
+        "cam_to_world": CAM_TO_BODY, "segmented_object_names": trio,
+        "pose_lists": rows}
+
+
+def frames_6dof(config, traffic, bank: Bank, seed: int, device) -> list:
+    rng = np.random.default_rng([seed, 2])
     out = []
     for _ in range(traffic["frames"]):
-        while True:
-            trio = [names[i] for i in rng.choice(len(names),
-                                                 size=sc["num_objects"],
-                                                 replace=False)]
-            placed, xy = [], []
-            for name in trio:
-                for _ in range(100):
-                    pos = np.array([rng.uniform(*sc["x_range"]),
-                                    rng.uniform(*sc["y_range"]),
-                                    rng.uniform(*sc["z_range"])])
-                    if all(np.linalg.norm(pos[:2] - p) >= sc["min_separation"]
-                           for p in xy):
-                        break
-                else:
-                    break
-                xy.append(pos[:2])
-                q = rng.normal(size=4)
-                q /= np.linalg.norm(q)
-                tf = np.eye(4)
-                tf[:3, :3] = quat_to_matrix(*q)
-                tf[:3, 3] = pos
-                placed.append((names.index(name), tf))
-            if len(placed) < len(trio) or not all(
-                    _in_view(cam, CAM_TO_BODY, tf[:3, 3])
-                    for _, tf in placed):
-                continue
-            depth, label = render_scene(bank, cam, CAM_TO_BODY, placed,
-                                        device)
-            if all((label == i + 1).sum() >= sc["min_visible_pixels"]
-                   for i in range(len(placed))):
-                break
-        depth_mm = np.rint(depth * 1000.0)
-        rows = candidates(depth_mm / 1000.0, label, trio, cam, CAM_TO_BODY,
-                          config["candidates"])
-        out.append({
-            "mode": traffic["mode"], "depth_image": depth_mm.astype(np.int64),
-            "label_mask": label, "depth_factor": 1000.0,
-            "cam_to_world": CAM_TO_BODY, "segmented_object_names": trio,
-            "pose_lists": rows})
+        _, depth, label, trio = place_6dof(config, bank, rng, device)
+        out.append(request_6dof(config, traffic["mode"],
+                                np.rint(depth * 1000.0), label, trio))
     return out
 
 
@@ -308,11 +325,28 @@ def frames_3dof(config, traffic, bank: Bank, seed: int, device) -> list:
     return out
 
 
-def make_frames(config, traffic, bank: Bank, seed: int, device) -> list:
+# -- scene kinds ------------------------------------------------------------
+
+KINDS = {"6dof": (True, frames_6dof), "3dof": (False, frames_3dof)}
+
+
+def kind(config: dict, scenes: Path = SCENES):
+    """(six_dof, make) of the configuration's `scene.kind`: "6dof" and
+    "3dof" are this file's; any other kind is `scenes/<kind>.py`, which sets
+    `SIX_DOF` (the models' preprocessing and the program's external pose
+    list) and `make(config, traffic, bank, seed, device)`."""
+    name = config["scene"]["kind"]
+    if name in KINDS:
+        return KINDS[name]
+    mod = load_file(Path(scenes) / f"{name}.py", "portbench_scene")
+    return mod.SIX_DOF, mod.make
+
+
+def make_frames(config, traffic, bank: Bank, seed: int, device,
+                scenes: Path = SCENES) -> list:
     """The traffic's distinct frames as request payloads, their images and
     rows as arrays (`encode` turns one into the request's bytes)."""
-    make = frames_6dof if config["scene"]["kind"] == "6dof" else frames_3dof
-    return make(config, traffic, bank, seed, device)
+    return kind(config, scenes)[1](config, traffic, bank, seed, device)
 
 
 def encode(frame: dict) -> bytes:

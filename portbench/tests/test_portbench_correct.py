@@ -42,7 +42,8 @@ def test_the_bfloat16_control_fails(name):
     details = {}
     cell, _ = _run(name, details=details)
     numbers = calibrate.control_numbers(cell, details, "cpu")
-    ok, _ = compare.verdict(numbers, compare.limits(cell.traffic["mode"]))
+    ok, _ = compare.verdict(numbers, compare.limits(
+        cell.traffic["mode"], cell.config["name"]))
     assert not ok, numbers
 
 
@@ -77,8 +78,8 @@ def _altered_answer(monkeypatch):
 
     orig = LocalizerService.handle
 
-    def altered(self, payload):
-        out = orig(self, payload)
+    def altered(self, payload, *args):
+        out = orig(self, payload, *args)
         if out["detections"]:
             out["detections"][0]["translation"][0] += 1e-3
         return out

@@ -75,3 +75,15 @@ def test_a_traffic_key_the_harness_does_not_implement_is_refused(
     with pytest.raises(SystemExit, match=next(iter(extra))):
         harness.load_cell("ycbv6d.depth-robot", tmp_path / "BENCHMARK.json",
                           bench)
+
+
+def test_the_tree_cell_reports_its_metrics():
+    cell = harness.load_cell("table3dof.tree-robot")
+    assert cell.config["name"] == "table3dof-roman"
+    assert cell.traffic["mode"] == "tree"
+    assert [m["name"] for m in cell.end_to_end] == [
+        "frame_ms", "peak_mem_mb", "setup_s"]
+    assert [m["name"] for m in cell.per_layer] == [
+        "service.frame_p90_ms", "service.decode_ms", "env.input_ms",
+        "env.candidates_ms", "scorer.ms", "scorer.poses_per_s",
+        "kernels.roofline.cost", "device.idle_share", "search.expands"]

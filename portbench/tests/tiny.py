@@ -9,9 +9,11 @@ frames a run."""
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 
 from portbench import harness
+from portbench.scenes.frames import kind
 
 
 def tiny(cell: harness.Cell) -> harness.Cell:
@@ -21,7 +23,7 @@ def tiny(cell: harness.Cell) -> harness.Cell:
         cam[k] *= 0.25
     cam["width"], cam["height"] = 160, 120
     c["env"]["width"], c["env"]["height"] = 160, 120
-    if c["scene"]["kind"] == "6dof":
+    if kind(c, cell.bench / "scenes")[0]:
         c["perch"]["gpu_stride"] = 4
         c["perch"]["gpu_batch_size"] = 64
         c["env"]["roi_size"] = 16
@@ -36,24 +38,11 @@ def tiny(cell: harness.Cell) -> harness.Cell:
         c["models"].update(n_seg=16, n_rings=10)
         c["env"].update(max_points_per_pose=128, icp_crop_targets=64)
         c["scene"]["min_visible_pixels"] = 750
-    return harness.Cell(cell.name, c, dict(cell.traffic, frames=2),
-                        cell.end_to_end, cell.per_layer)
-
-
-# A cell whose files the benchmark keeps, with no
-# BENCHMARK.json entry yet: the cell that shares its configuration, and its
-# traffic.
-LATER = {"table3dof.tree-robot": ("table3dof.greedyicp-robot", "tree-robot")}
+    return dataclasses.replace(cell, config=c,
+                               traffic=dict(cell.traffic, frames=2))
 
 
 def tiny_cell(name: str) -> harness.Cell:
-    if name in LATER:
-        base, traffic = LATER[name]
-        cell = harness.load_cell(base)
-        cell = harness.Cell(name, cell.config, harness.load_json(
-            harness.BENCH / "traffic" / f"{traffic}.json"), cell.end_to_end,
-            cell.per_layer)
-        return tiny(cell)
     return tiny(harness.load_cell(name))
 
 
