@@ -9,7 +9,10 @@ The first two associate with `knn.nn1_batch` (the 1-NN kernel on the card)
 once per Gauss-Newton iteration; the projective refiner associates by
 projecting each source point into the organised observed map. All three sum
 the 6x6 normal equations with PyTorch reductions and stop once every pose
-has converged: one host read of the converged flags per iteration.
+has converged: one host read of the converged flags per iteration. Their
+`ICPResult.loops` counts those iterations. On the card the GICP iteration
+is captured as a CUDA graph once a call and replayed, bit for bit the
+eager iteration's kernels.
 
 The normals' covariance, mean and power iteration are written as
 fixed-order element-wise sums (no reductions, matmuls or norms whose order
@@ -18,6 +21,7 @@ depends on the device), so the CPU and the card round them alike.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -202,6 +206,9 @@ class ICPResult(NamedTuple):
     fitness: torch.Tensor     # [N] inlier fraction at convergence
     rmse: torch.Tensor        # [N] inlier RMSE (m)
     iterations: torch.Tensor  # [N] int32 iterations until convergence
+    # The composed refiners' loop iterations, known on the host: each one
+    # association and one host read of the converged flags.
+    loops: int = 0
 
 
 def _crop(src_xyz, src_valid, tgt_xyz, tgt_valid, tgt_normals, crop_k):
@@ -272,6 +279,7 @@ def icp_point_to_plane_batch(
     rmse = torch.zeros((n,), dtype=torch.float32, device=dev)
     streak = torch.zeros((n,), dtype=torch.int32, device=dev)
     n_valid = torch.clamp(src_valid.sum(dim=1).to(torch.float32), min=1.0)
+    loops = 0
     for k in range(max_iterations):
         cur = _transform(delta, src_xyz)
         dist_sq, idx = nn1_batch(cur, src_valid, tgt_xyz, tgt_valid)
@@ -288,9 +296,11 @@ def icp_point_to_plane_batch(
         converged, iters, streak = _converge(
             k, xi, fitness, rmse, prev_fit, prev_rmse, streak, ok, converged,
             iters, rotation_epsilon, transformation_epsilon)
+        loops += 1
         if bool(converged.all()):
             break
-    return ICPResult(delta=delta, fitness=fitness, rmse=rmse, iterations=iters)
+    return ICPResult(delta=delta, fitness=fitness, rmse=rmse, iterations=iters,
+                     loops=loops)
 
 
 def icp_projective_batch(
@@ -329,6 +339,7 @@ def icp_projective_batch(
     fitness = torch.zeros((n,), dtype=torch.float32, device=dev)
     rmse = torch.zeros((n,), dtype=torch.float32, device=dev)
     n_valid = torch.clamp(src_valid.sum(dim=1).to(torch.float32), min=1.0)
+    loops = 0
     for _ in range(max_iterations):
         cur = _transform(delta, src_xyz)
         z = torch.clamp(cur[..., 2], min=1e-6)
@@ -358,9 +369,11 @@ def icp_projective_batch(
         rmse = sqrt((e * e * w).double().sum(dim=1).float()
                     / torch.clamp(count, min=1.0))
         fitness = count / n_valid
+        loops += 1
         if bool(converged.all()):
             break
-    return ICPResult(delta=delta, fitness=fitness, rmse=rmse, iterations=iters)
+    return ICPResult(delta=delta, fitness=fitness, rmse=rmse, iterations=iters,
+                     loops=loops)
 
 
 def _inv_3x3_sym(m: torch.Tensor) -> torch.Tensor:
@@ -383,6 +396,128 @@ def _inv_3x3_sym(m: torch.Tensor) -> torch.Tensor:
     return rows * inv_det[..., None, None]
 
 
+def _gicp_state(n: int, dev) -> list[torch.Tensor]:
+    """The GICP loop's state at its start: delta [N, 4, 4], converged,
+    iterations, fitness, rmse and the stagnation streak [N]."""
+    return [torch.eye(4, dtype=torch.float32, device=dev).repeat(n, 1, 1),
+            torch.zeros((n,), dtype=torch.bool, device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev),
+            torch.zeros((n,), dtype=torch.float32, device=dev),
+            torch.zeros((n,), dtype=torch.float32, device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev)]
+
+
+def _gicp_step(k, state, clouds, fixed, max_corr_sq, one_m_eps, damping,
+               rot_eps, trn_eps) -> list[torch.Tensor]:
+    """One GICP iteration: the next state from `state`. `k` is the
+    iteration, an int or (in a CUDA graph) a 0-d tensor; `fixed` holds
+    eye3, eye6 and each pose's valid source count."""
+    delta, converged, iters, fitness, rmse, streak = state
+    src_xyz, src_valid, src_normals, tgt_xyz, tgt_valid, tgt_normals = clouds
+    eye3, eye6, n_valid = fixed
+    cur = _transform(delta, src_xyz)
+    dist_sq, idx = nn1_batch(cur, src_valid, tgt_xyz, tgt_valid)
+    i3 = idx.long()[..., None].expand(-1, -1, 3)
+    q = torch.gather(tgt_xyz, 1, i3)
+    nt = torch.gather(tgt_normals, 1, i3)
+    w = (src_valid & (dist_sq <= max_corr_sq)).to(torch.float32)
+    # C = C_t + R C_s R^T = 2 I - (1 - eps)(nt nt^T + ns' ns'^T).
+    ns = rotate_points(delta[:, :3, :3], src_normals)
+    cmb = 2.0 * eye3 - one_m_eps * (nt[..., :, None] * nt[..., None, :]
+                                    + ns[..., :, None] * ns[..., None, :])
+    wmat = _inv_3x3_sym(cmb) * w[..., None, None]        # [N, P, 3, 3]
+    r3 = cur - q
+    count = w.sum(dim=1)
+    cen = ((cur * w[..., None]).sum(dim=1)
+           / torch.clamp(count, min=1.0)[:, None])       # [N, 3]
+    cx = _hat(cur - cen[:, None, :])
+    jac = torch.cat([-cx, eye3.expand(cx.shape)], dim=-1)   # [N, P, 3, 6]
+    wj = torch.einsum("npab,npbj->npaj", wmat, jac)
+    h = torch.einsum("npai,npaj->nij", jac, wj)
+    g = -torch.einsum("npaj,npa->nj", wj, r3)
+    ok = count >= 6
+    diag = torch.diagonal(h, dim1=1, dim2=2)
+    h = h + eye6 * (damping * diag + 1e-9)[:, None, :]
+    h = torch.where(ok[:, None, None], h, eye6)
+    xi = solve_spd_6x6(h, g)
+    xi = torch.where((ok & ~converged)[:, None], xi, 0.0)
+    step = se3_exp(xi)
+    # The centred update as a camera-frame transform:
+    # x' = R_s (x - c) + c + t_s.
+    step[:, :3, 3] += cen - torch.einsum("nij,nj->ni", step[:, :3, :3], cen)
+    delta = torch.bmm(step, delta)
+    mres = torch.einsum("npa,npab,npb->np", r3, wmat, r3).sum(dim=1)
+    prev_fit, prev_rmse = fitness, rmse
+    fitness = count / n_valid
+    rmse = sqrt(torch.clamp(mres / torch.clamp(count, min=1.0), min=0.0))
+    converged, iters, streak = _converge(
+        k, xi, fitness, rmse, prev_fit, prev_rmse, streak, ok, converged,
+        iters, rot_eps, trn_eps)
+    return [delta, converged, iters, fitness, rmse, streak]
+
+
+class _Capture:
+    """A device's CUDA graph capture of the GICP iteration: the side stream
+    it is captured on and the last graph, whose memory pool the next
+    capture shares (so the pool stays one, and is reused)."""
+
+    def __init__(self, dev):
+        self.stream = torch.cuda.Stream(dev)
+        self.last = None
+        self.lock = threading.Lock()
+
+
+_CAPTURES: dict[str, _Capture] = {}
+
+
+def _gicp_graph_loop(clouds, fixed, params, max_iterations):
+    """icp_gicp_batch's loop on the card: one iteration captured as a CUDA
+    graph over this call's tensors, then replayed until every pose has
+    converged. A replay launches the iteration's several hundred kernels at
+    once, so the loop runs at the card's pace rather than at the rate the
+    host issues them; it runs the eager loop's kernels in the same order on
+    the same shapes, so the two round alike. Returns (state, loops)."""
+    dev = clouds[0].device
+    state = _gicp_state(clouds[0].shape[0], dev)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def step():
+        new = _gicp_step(k, state, clouds, fixed, *params)
+        for old, value in zip(state, new):
+            old.copy_(value)
+        k.add_(1)
+
+    cap = _CAPTURES.get(str(dev))
+    if cap is None:
+        cap = _CAPTURES.setdefault(str(dev), _Capture(dev))
+    current = torch.cuda.current_stream(dev)
+    with cap.lock:
+        cap.stream.wait_stream(current)
+        with torch.cuda.stream(cap.stream):
+            if cap.last is None:
+                # One eager iteration first: the libraries' handles and
+                # workspaces for this stream.
+                _gicp_step(0, _gicp_state(clouds[0].shape[0], dev), clouds,
+                           fixed, *params)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(
+                pool=cap.last.pool() if cap.last is not None else None,
+                capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                graph.capture_end()
+        current.wait_stream(cap.stream)
+        cap.last = graph
+        loops = 0
+        for _ in range(max_iterations):
+            graph.replay()
+            loops += 1
+            if bool(state[1].all()):
+                break
+    return state, loops
+
+
 def icp_gicp_batch(
     src_xyz: torch.Tensor,      # [N, P, 3] rendered cloud per pose (camera)
     src_valid: torch.Tensor,    # [N, P]
@@ -398,6 +533,7 @@ def icp_gicp_batch(
     damping: float = 1e-4,
     gicp_epsilon: float = 1e-3,
     crop_k: int = 0,
+    graph: bool = True,
 ) -> ICPResult:
     """Distribution-to-distribution (GICP) refinement with fast_gicp's
     semantics: plane-regularised covariances I - (1 - eps) n n^T on both
@@ -405,61 +541,32 @@ def icp_gicp_batch(
     3-vector Gauss-Newton with J = [-[c - cen]x | I] about the
     correspondence centroid, Marquardt damping, 1-NN association every
     iteration. The default step thresholds are 10x tighter than the
-    point-to-plane solver's (see the JAX function's docstring)."""
+    point-to-plane solver's (see the JAX function's docstring). On the card
+    (unless graph=False) each iteration is one replay of a CUDA graph of
+    it, captured once a call, with the same results."""
     n = src_xyz.shape[0]
     dev = src_xyz.device
-    max_corr_sq = max_correspondence * max_correspondence
-    one_m_eps = 1.0 - gicp_epsilon
     tgt_xyz, tgt_valid, tgt_normals = _crop(src_xyz, src_valid, tgt_xyz,
                                             tgt_valid, tgt_normals, crop_k)
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-    delta = torch.eye(4, dtype=torch.float32, device=dev).repeat(n, 1, 1)
-    converged = torch.zeros((n,), dtype=torch.bool, device=dev)
-    iters = torch.zeros((n,), dtype=torch.int32, device=dev)
-    fitness = torch.zeros((n,), dtype=torch.float32, device=dev)
-    rmse = torch.zeros((n,), dtype=torch.float32, device=dev)
-    streak = torch.zeros((n,), dtype=torch.int32, device=dev)
-    n_valid = torch.clamp(src_valid.sum(dim=1).to(torch.float32), min=1.0)
+    clouds = (src_xyz, src_valid, src_normals, tgt_xyz, tgt_valid,
+              tgt_normals)
+    fixed = (torch.eye(3, dtype=torch.float32, device=dev),
+             torch.eye(6, dtype=torch.float32, device=dev),
+             torch.clamp(src_valid.sum(dim=1).to(torch.float32), min=1.0))
+    params = (max_correspondence * max_correspondence, 1.0 - gicp_epsilon,
+              damping, rotation_epsilon, transformation_epsilon)
+    if graph and dev.type == "cuda" and n and max_iterations > 0:
+        state, loops = _gicp_graph_loop(clouds, fixed, params, max_iterations)
+        delta, _, iters, fitness, rmse, _ = state
+        return ICPResult(delta=delta, fitness=fitness, rmse=rmse,
+                         iterations=iters, loops=loops)
+    state = _gicp_state(n, dev)
+    loops = 0
     for k in range(max_iterations):
-        cur = _transform(delta, src_xyz)
-        dist_sq, idx = nn1_batch(cur, src_valid, tgt_xyz, tgt_valid)
-        i3 = idx.long()[..., None].expand(-1, -1, 3)
-        q = torch.gather(tgt_xyz, 1, i3)
-        nt = torch.gather(tgt_normals, 1, i3)
-        w = (src_valid & (dist_sq <= max_corr_sq)).to(torch.float32)
-        # C = C_t + R C_s R^T = 2 I - (1 - eps)(nt nt^T + ns' ns'^T).
-        ns = rotate_points(delta[:, :3, :3], src_normals)
-        cmb = 2.0 * eye3 - one_m_eps * (nt[..., :, None] * nt[..., None, :]
-                                        + ns[..., :, None] * ns[..., None, :])
-        wmat = _inv_3x3_sym(cmb) * w[..., None, None]        # [N, P, 3, 3]
-        r3 = cur - q
-        count = w.sum(dim=1)
-        cen = ((cur * w[..., None]).sum(dim=1)
-               / torch.clamp(count, min=1.0)[:, None])       # [N, 3]
-        cx = _hat(cur - cen[:, None, :])
-        jac = torch.cat([-cx, eye3.expand(cx.shape)], dim=-1)   # [N, P, 3, 6]
-        wj = torch.einsum("npab,npbj->npaj", wmat, jac)
-        h = torch.einsum("npai,npaj->nij", jac, wj)
-        g = -torch.einsum("npaj,npa->nj", wj, r3)
-        ok = count >= 6
-        diag = torch.diagonal(h, dim1=1, dim2=2)
-        h = h + eye6 * (damping * diag + 1e-9)[:, None, :]
-        h = torch.where(ok[:, None, None], h, eye6)
-        xi = solve_spd_6x6(h, g)
-        xi = torch.where((ok & ~converged)[:, None], xi, 0.0)
-        step = se3_exp(xi)
-        # The centred update as a camera-frame transform:
-        # x' = R_s (x - c) + c + t_s.
-        step[:, :3, 3] += cen - torch.einsum("nij,nj->ni", step[:, :3, :3], cen)
-        delta = torch.bmm(step, delta)
-        mres = torch.einsum("npa,npab,npb->np", r3, wmat, r3).sum(dim=1)
-        prev_fit, prev_rmse = fitness, rmse
-        fitness = count / n_valid
-        rmse = sqrt(torch.clamp(mres / torch.clamp(count, min=1.0), min=0.0))
-        converged, iters, streak = _converge(
-            k, xi, fitness, rmse, prev_fit, prev_rmse, streak, ok, converged,
-            iters, rotation_epsilon, transformation_epsilon)
-        if bool(converged.all()):
+        state = _gicp_step(k, state, clouds, fixed, *params)
+        loops += 1
+        if bool(state[1].all()):
             break
-    return ICPResult(delta=delta, fitness=fitness, rmse=rmse, iterations=iters)
+    delta, _, iters, fitness, rmse, _ = state
+    return ICPResult(delta=delta, fitness=fitness, rmse=rmse, iterations=iters,
+                     loops=loops)

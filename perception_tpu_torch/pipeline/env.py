@@ -126,6 +126,11 @@ class PerceptionEnv:
             raise RuntimeError("no CUDA device: the env runs on the card "
                                "unless given device='cpu'")
         self.stats = EnvStats()
+        # The composed ICP refiners' loop iterations since the last
+        # set_input, summed over the scored batches (the service's
+        # `stats.icp_iterations`; not an EnvStats field, which keep the JAX
+        # package's).
+        self.icp_iterations = 0
         # Graph-state identity for the search's deduplication; the bounds
         # follow each input's search region (set_input).
         self._disc = Discretizer(res=self.env.res,
@@ -276,6 +281,7 @@ class PerceptionEnv:
         with span("env.set_input") as sp:
             t0 = time.perf_counter()
             self._input = rin
+            self.icp_iterations = 0
             self._disc = Discretizer(
                 x_min=rin.x_min, x_max=rin.x_max, y_min=rin.y_min,
                 y_max=rin.y_max, res=self.env.res,
@@ -514,7 +520,7 @@ class PerceptionEnv:
             use_tree_occlusion=perch.use_tree_occlusion,
             do_icp=do_icp,
             icp_mode=icp_mode,
-            icp_max_iterations=min(perch.max_icp_iterations, 60),
+            icp_max_iterations=perch.max_icp_iterations,
             icp_max_correspondence=perch.icp_max_correspondence,
             icp_downsample=env.icp_downsample,
             icp_render_scale=env.icp_render_scale,
@@ -592,6 +598,7 @@ class PerceptionEnv:
                 dev = self._tensor
                 with span("scorer.batch"):
                     t0 = time.perf_counter()
+                    counters: dict = {}
                     scores = score_pose_batch(
                         rb_verts, rb_colors, rb_valid,
                         dev(poses, torch.float32), dev(ids), dev(labels),
@@ -599,7 +606,7 @@ class PerceptionEnv:
                         scene, cfg, bank_backface=rb_backface,
                         bank_icp_samples=self._bank_icp_samples,
                         bank_icp_normals=self._bank_icp_normals,
-                        bank_tri_lab=self._render_bank_lab)
+                        bank_tri_lab=self._render_bank_lab, counters=counters)
                     total = scores.total_cost.cpu().numpy()
                     rendered = scores.rendered_cost.cpu().numpy()
                     observed = scores.observed_cost.cpu().numpy()
@@ -607,6 +614,7 @@ class PerceptionEnv:
                     adjusted = scores.adjusted_poses.cpu().numpy()
                     self.stats.gpu_time += time.perf_counter() - t0
                 self.stats.scenes_rendered += n
+                self.icp_iterations += counters["icp_iterations"]
                 sp.add("poses", n)
                 sp.add("batches", 1)
                 sp.add("slots", batch)

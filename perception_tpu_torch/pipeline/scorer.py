@@ -84,6 +84,7 @@ from perception_tpu_torch.ops.pointcloud import (
     depth_to_cloud_roi,
 )
 from perception_tpu_torch.ops.rasterizer import render_pose_batch
+from perception_tpu_torch.utils.stats import span
 
 # The JAX scorer's caps of its fused cost (perception_tpu/pipeline/
 # scorer.py, p_cap and sc): above them it takes the composed cost, on RGB.
@@ -262,12 +263,14 @@ def _icp_targets(scene: ObservedScene, labels: torch.Tensor,
 
 def _refine(src_xyz: torch.Tensor, src_valid: torch.Tensor,
             src_nrm: torch.Tensor | None, scene: ObservedScene,
-            labels: torch.Tensor, cfg: ScorerConfig) -> torch.Tensor:
-    """ICP deltas [N, 4, 4] by cfg.icp_mode, as the JAX scorer dispatches.
+            labels: torch.Tensor, cfg: ScorerConfig
+            ) -> tuple[torch.Tensor, int]:
+    """(ICP deltas [N, 4, 4] by cfg.icp_mode, as the JAX scorer dispatches;
+    the composed refiners' host loop iterations, 0 for the fused kernel).
     src_nrm: the model source's exact normals (None for a rendered source,
     whose normals the modes that need them estimate by k-NN)."""
     if cfg.icp_mode == "projective":
-        return icp_projective_batch(
+        out = icp_projective_batch(
             src_xyz, src_valid, scene.map_xyz, scene.map_normals,
             scene.map_valid, scene.map_label, labels,
             fx=cfg.fx, fy=cfg.fy, cx=cfg.cx, cy=cfg.cy, width=cfg.width,
@@ -276,7 +279,8 @@ def _refine(src_xyz: torch.Tensor, src_valid: torch.Tensor,
             max_correspondence=cfg.icp_max_correspondence,
             rotation_epsilon=cfg.icp_rotation_epsilon,
             transformation_epsilon=cfg.icp_transformation_epsilon,
-            use_labels=cfg.use_segmentation_label).delta
+            use_labels=cfg.use_segmentation_label)
+        return out.delta, out.loops
     if cfg.icp_mode in ("nn", "gicp"):
         tgt = (scene.seg_xyz[labels], scene.seg_valid[labels],
                scene.seg_normals[labels])
@@ -284,18 +288,20 @@ def _refine(src_xyz: torch.Tensor, src_valid: torch.Tensor,
                       max_correspondence=cfg.icp_max_correspondence,
                       crop_k=cfg.icp_crop_targets)
         if cfg.icp_mode == "nn":
-            return icp_point_to_plane_batch(
+            out = icp_point_to_plane_batch(
                 src_xyz, src_valid, *tgt,
                 rotation_epsilon=cfg.icp_rotation_epsilon,
                 transformation_epsilon=cfg.icp_transformation_epsilon,
-                **common).delta
+                **common)
+            return out.delta, out.loops
         rot_eps, trn_eps = cfg.d2d_epsilons()
         if src_nrm is None:
             src_nrm = cloud_normals(src_xyz, src_valid)
-        return icp_gicp_batch(
+        out = icp_gicp_batch(
             src_xyz, src_valid, src_nrm, *tgt,
             rotation_epsilon=rot_eps, transformation_epsilon=trn_eps,
-            gicp_epsilon=cfg.icp_gicp_epsilon, **common).delta
+            gicp_epsilon=cfg.icp_gicp_epsilon, **common)
+        return out.delta, out.loops
     exact = cfg.icp_mode == "fused_d2d_exact"
     d2d = cfg.icp_mode != "fused"
     fused_nrm = None
@@ -318,7 +324,7 @@ def _refine(src_xyz: torch.Tensor, src_valid: torch.Tensor,
         rotation_epsilon=rot_eps, transformation_epsilon=trn_eps,
         stagnation_streak=cfg.icp_stagnation_streak,
         d2d_epsilon=cfg.icp_gicp_epsilon if d2d else 0.0, exact=exact,
-        assoc_trigger=cfg.icp_assoc_trigger)
+        assoc_trigger=cfg.icp_assoc_trigger), 0
 
 
 def model_source(poses: torch.Tensor, model_ids: torch.Tensor,
@@ -361,9 +367,14 @@ def score_pose_batch(
     bank_icp_samples: torch.Tensor | None = None,  # [M, K, 3]
     bank_icp_normals: torch.Tensor | None = None,  # [M, K, 3]
     bank_tri_lab: torch.Tensor | None = None,      # [M, T, 3] face Lab
+    counters: dict | None = None,
 ) -> PoseScores:
     """Render, refine and score one batch of candidate poses; pose i scores
-    against observed segment pose_labels[i]."""
+    against observed segment pose_labels[i]. Given a dict `counters`, its
+    "icp_iterations" gets the composed refiner's loop iterations (each one
+    association and one host read; 0 on the fused and no-ICP paths).
+    The refinement is the `scorer.icp` span (counters `poses`, the batch's
+    slots, and `iterations`, that loop count)."""
     _check_config(cfg)
     labels = torch.clamp(pose_labels.long(), 0, scene.seg_xyz.shape[0] - 1)
     ids = model_ids.long()
@@ -430,8 +441,14 @@ def score_pose_batch(
 
     adjusted = poses
     explain_only = None
+    loops = 0
     if cfg.do_icp:
-        delta = _refine(src_xyz, src_valid, src_nrm, scene, labels, cfg)
+        with span("scorer.icp") as sp:
+            delta, loops = _refine(src_xyz, src_valid, src_nrm, scene, labels,
+                                   cfg)
+            if sp:
+                sp.add("poses", poses.shape[0])
+                sp.add("iterations", loops)
         adjusted = _compose(delta, poses)
         if cfg.cost_cloud == "transform" and not from_model and not coarse:
             cloud, explain_only = _moved_cloud(
@@ -468,6 +485,8 @@ def score_pose_batch(
             color_distance_threshold=cfg.color_distance_threshold,
             use_color=fused_color, cloud_explain_only=explain_only, **tri_kw)
 
+    if counters is not None:
+        counters["icp_iterations"] = loops
     invalid = costs.rendered_cost.to(torch.int32) < 0
     total_f = costs.rendered_cost + costs.observed_cost
     if cfg.use_clutter_mode:

@@ -12,7 +12,8 @@ Counterpart of `perception_tpu/serve.py`:
                   -> {"detections": [{"name", "translation",
                                       "quaternion_xyzw", "transform"}],
                       "stats": {"scenes_rendered", "time", "gpu_time",
-                                "decode_time", "expands", "request_id"}}
+                                "decode_time", "expands", "icp_iterations",
+                                "request_id"}}
     GET /status      the last /localize response
     GET /trace       with tracing on, the spans of the last 256 requests:
                      [{"request_id", "spans": [{"name", "start_ns",
@@ -33,8 +34,11 @@ the table at `table_height`. A request with a `label_mask` is a 6-DoF input,
 one without it a 3-DoF input. A `color_image` (0..255 RGB) reaches
 `set_input`, which builds the observed Lab colours that the colour-gated
 cost (`use_color_cost`) reads. `decode_time` is the seconds spent turning
-the JSON lists into arrays. `request_id` numbers the process's requests; with
-tracing on it is the `request` of the request's spans.
+the JSON lists into arrays. `icp_iterations` is the request's sum over its
+scored batches of the composed ICP refiners' loop iterations (each one
+association and one host read; 0 on the fused and no-ICP paths).
+`request_id` numbers the process's requests; with tracing on it is the
+`request` of the request's spans.
 
 Tracing (`serve(..., trace=True)`, `--trace`; `utils.stats`): each POST is a
 `service.request` span (tag `mode`; counter `error` = 1 on a failed request)
@@ -148,6 +152,7 @@ class LocalizerService:
                 "gpu_time": stats.gpu_time,
                 "decode_time": decode_time,
                 "expands": stats.expands,
+                "icp_iterations": self.recognizer.env.icp_iterations,
                 "request_id": request_id,
             },
         }

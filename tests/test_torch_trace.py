@@ -4,6 +4,7 @@ and search, on the CPU at the service tests' sizes (tests/test_torch_serve.py:
 the box scene's greedy request, the crate and post 3-DoF scene's greedy ICP
 request), PyTorch on one thread."""
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -17,12 +18,16 @@ import pytest
 import torch
 
 from perception_tpu.core.pose import CAM_TO_BODY
+from perception_tpu_torch import convert
+from perception_tpu_torch.pipeline.recognizer import ObjectRecognizer
 from perception_tpu_torch.serve import serve
 from perception_tpu_torch.utils import stats
 from perception_tpu_torch.utils.stats import TRACE, StageTimer, span
 
 from tests.test_torch_serve import (
+    PCAM,
     _payload,
+    _port_env,
     _port_recognizer,
     _pose_lists,
     _table_recognizer,
@@ -30,7 +35,7 @@ from tests.test_torch_serve import (
 )
 
 STATS_KEYS = {"scenes_rendered", "time", "gpu_time", "decode_time",
-              "expands", "request_id"}
+              "expands", "icp_iterations", "request_id"}
 
 GREEDY_TREE = {
     ("service.request", "service.read"), ("service.request", "service.json"),
@@ -43,7 +48,7 @@ GREEDY_TREE = {
     ("recognizer.localize", "env.candidates"),
     ("recognizer.localize", "env.score"),
     ("env.score", "scorer.prepare"), ("env.score", "scorer.batch"),
-    ("env.score", "scorer.results"),
+    ("env.score", "scorer.results"), ("scorer.batch", "scorer.icp"),
     ("recognizer.localize", "env.argmin"),
 }
 GREEDY_ICP_TREE = GREEDY_TREE | {
@@ -271,6 +276,11 @@ def test_greedy_request_span_tree(jax_env):
     assert c["poses"] == after - before > 0
     assert c["slots"] == c["batches"] * batch
     assert len(_named(spans, "scorer.batch")) == c["batches"]
+    # The fused kernel: one refinement a batch, no host loop.
+    icp = _named(spans, "scorer.icp")
+    assert [s["counters"] for s in icp] == [
+        {"poses": batch, "iterations": 0}] * c["batches"]
+    assert out["stats"]["icp_iterations"] == 0
     (cands,) = _named(spans, "env.candidates")
     assert cands["counters"]["rows"] == sum(
         len(v) for v in payload["pose_lists"].values())
@@ -284,6 +294,31 @@ def test_greedy_request_span_tree(jax_env):
     for s in spans:
         assert root["start_ns"] <= s["start_ns"] <= s["end_ns"] \
             <= root["end_ns"]
+
+
+def test_gicp_request_spans_its_refinement(jax_env):
+    """The composed GICP refiner: each batch's `scorer.icp` span counts the
+    batch's slots and its loop iterations (one host read each), and the
+    reply's `stats.icp_iterations` is their sum."""
+    env = _port_env(jax_env)
+    rec = ObjectRecognizer.from_models(
+        convert.models_from_jax(jax_env.bank.models), PCAM, env.perch,
+        dataclasses.replace(env.env, icp_mode="gicp"), t_cap=16,
+        device="cpu")
+    payload = _payload(jax_env, _pose_lists())
+    with _Served(rec, trace=True) as served:
+        out, spans = _traced_request(served, payload)
+    assert out["detections"]
+    assert _edges(spans) == GREEDY_TREE
+    (score,) = _named(spans, "env.score")
+    icp = _named(spans, "scorer.icp")
+    assert len(icp) == score["counters"]["batches"]
+    loops = [s["counters"]["iterations"] for s in icp]
+    assert [s["counters"] for s in icp] == [
+        {"poses": rec.env.perch.gpu_batch_size, "iterations": n}
+        for n in loops]
+    assert all(0 < n <= rec.env.perch.max_icp_iterations for n in loops)
+    assert out["stats"]["icp_iterations"] == sum(loops)
 
 
 def test_greedy_icp_request_span_tree():
