@@ -50,7 +50,11 @@ from perception_tpu_torch.core.config import (
     PerchConfig,
 )
 from perception_tpu_torch.core.mesh import ModelBank
-from perception_tpu_torch.core.pose import CAM_TO_BODY, ContPose
+from perception_tpu_torch.core.pose import (
+    CAM_TO_BODY,
+    ContPose,
+    euler_xyz_to_matrix,
+)
 from perception_tpu_torch.core.state import (
     Discretizer,
     GraphState,
@@ -393,7 +397,8 @@ class PerceptionEnv:
                     placed: GraphState | None = None,
                     after_refinement: bool = False) -> np.ndarray:
         """is_valid_pose of every state, as a bool array, batched over the
-        states: 6-DoF per (model, label), 3-DoF over them all."""
+        states: 6-DoF per (model, label), 3-DoF over them all (`_valid_3dof`
+        with the states grouped by model and full rotation)."""
         grid_rad = self._grid_rad(after_refinement)
         if self._input is not None and self._input.use_external_pose_list:
             ok = np.zeros(len(states), bool)
@@ -406,7 +411,19 @@ class PerceptionEnv:
                                      states[i].pose.z] for i in idx])
                 ok[idx] = self._valid_6dof(mid, label_id, centres, grid_rad)
             return ok
-        return self._valid_3dof(states, placed, grid_rad)
+        ids = np.zeros(len(states), np.int64)
+        xy = np.zeros((len(states), 2), np.float64)
+        group = np.zeros(len(states), np.int64)
+        keys: dict[tuple, int] = {}
+        rots: list[np.ndarray] = []
+        for i, s in enumerate(states):
+            p = s.pose
+            key = (s.id, p.qx, p.qy, p.qz, p.qw, p.roll, p.pitch, p.yaw)
+            if key not in keys:
+                keys[key] = len(rots)
+                rots.append(p.rotation()[:2, :2])
+            ids[i], xy[i], group[i] = s.id, (p.x, p.y), keys[key]
+        return self._valid_3dof(ids, xy, group, rots, placed, grid_rad)
 
     def _grid_rad(self, after_refinement: bool) -> float:
         """The grid cell's half diagonal, or 0 after refinement."""
@@ -432,27 +449,40 @@ class PerceptionEnv:
         count = tree.query_ball_point(centres, rad, return_length=True)
         return count >= self.perch.min_neighbor_points_for_valid_pose
 
-    def _projected_counts(self, xy: np.ndarray, rad: np.ndarray) -> np.ndarray:
+    def _projected_counts(self, xy: np.ndarray, rad: np.ndarray,
+                          sp=NO_SPAN) -> np.ndarray:
         """Observed world points within rad[i] of xy[i] in the (x, y) plane
-        (float64 d^2 <= rad^2), for every i, in chunks of [C, P]."""
+        (float64 d^2 <= rad^2), for every i: counted once per distinct
+        (x, y, rad), in chunks of [C, P], the number counted on `sp`."""
         pts = self._world_points[:, :2]
-        out = np.zeros(len(xy), np.int64)
+        key = np.column_stack([xy, rad])
+        order = np.lexsort(key.T[::-1])
+        first = np.ones(len(key), bool)
+        first[1:] = (key[order[1:]] != key[order[:-1]]).any(axis=1)
+        rows = key[order[first]]
+        inverse = np.empty(len(key), np.int64)
+        inverse[order] = np.cumsum(first) - 1
+        sp.add("counted", len(rows))
+        out = np.zeros(len(rows), np.int64)
         step = max(1, (1 << 22) // max(len(pts), 1))
-        for lo in range(0, len(xy), step):
-            d2 = ((pts[None] - xy[lo:lo + step, None]) ** 2).sum(axis=2)
-            r = rad[lo:lo + step]
+        for lo in range(0, len(rows), step):
+            d2 = ((pts[None] - rows[lo:lo + step, None, :2]) ** 2).sum(axis=2)
+            r = rows[lo:lo + step, 2]
             out[lo:lo + step] = (d2 <= (r * r)[:, None]).sum(axis=1)
-        return out
+        return out[inverse]
 
-    def _valid_3dof(self, states: Sequence[ObjectState],
-                    placed: GraphState | None, grid_rad: float) -> np.ndarray:
-        ok = np.zeros(len(states), bool)
-        if self._world_kdtree is None or not states:
+    def _valid_3dof(self, ids: np.ndarray, xy: np.ndarray, group: np.ndarray,
+                    rots: Sequence[np.ndarray], placed: GraphState | None,
+                    grid_rad: float, sp=NO_SPAN) -> np.ndarray:
+        """The 3-DoF rule over rows of model ids [N], float64 (x, y) [N, 2]
+        and rotation groups [N]: the rows of group g share one model and
+        the 2x2 rotation rots[g]. Points counted once per distinct
+        (x, y, radius), on `sp`."""
+        ok = np.zeros(len(ids), bool)
+        if self._world_kdtree is None or not len(ids):
             return ok
-        ids = np.array([s.id for s in states])
-        xy = np.array([[s.pose.x, s.pose.y] for s in states], np.float64)
         rad = np.maximum(self._circ_radius[ids], grid_rad)
-        ok = (self._projected_counts(xy, rad)
+        ok = (self._projected_counts(xy, rad, sp)
               >= self.perch.min_neighbor_points_for_valid_pose)
         if placed is not None:
             r1 = self._insc_radius[ids]
@@ -462,17 +492,14 @@ class PerceptionEnv:
                 dy = xy[:, 1] - other.pose.y
                 ok &= ~(dx * dx + dy * dy < (r1 + r2) ** 2)
         # The posed footprint hull inside the region: the hull is rotated
-        # once per (model, rotation), then shifted to every state with it.
+        # once per (model, rotation) group, then shifted to each of the
+        # group's rows still valid.
         tol = self.perch.footprint_tolerance
         rin = self._input
-        groups: dict[tuple, list[int]] = {}
-        for i, s in enumerate(states):
-            p = s.pose
-            groups.setdefault((s.id, p.qx, p.qy, p.qz, p.qw, p.roll, p.pitch,
-                               p.yaw), []).append(i)
-        for idx in groups.values():
-            s = states[idx[0]]
-            base = self._footprints[s.id] @ s.pose.rotation()[:2, :2].T
+        live = np.flatnonzero(ok)
+        for g in np.unique(group[live]).tolist():
+            idx = live[group[live] == g]
+            base = self._footprints[ids[idx[0]]] @ rots[g].T
             fp = base[None] + xy[idx][:, None, :]           # [g, E, 2]
             out = ((fp[..., 0] < rin.x_min - tol).any(axis=1)
                    | (fp[..., 0] > rin.x_max + tol).any(axis=1)
@@ -854,20 +881,39 @@ class PerceptionEnv:
         return out
 
     def generate_successors_3dof(self) -> list[ObjectState]:
-        """`grid_3dof`, validity-pruned; then the histogram / voxel pruning
-        the EnvConfig enables."""
+        """The grid of `grid_3dof` validity-pruned on arrays by the rule of
+        `valid_poses`, with states built for the valid rows alone, in the
+        grid's order; then the histogram / voxel pruning the EnvConfig
+        enables."""
         env = self.env
         with span("env.candidates") as sp:
             with span("env.candidates.grid"):
-                grid = self.grid_3dof()
+                xs, ys, yaws = self._grid_axes()
+                # Rows (model, x index, y index, yaw index) in the grid's
+                # order; a rotation group per (model, yaw).
+                mids, ix, iy, k = np.concatenate([np.vstack([
+                    np.full(len(xs) * len(ys) * len(m_yaws), mid),
+                    *np.indices((len(xs), len(ys), len(m_yaws))).reshape(3, -1)
+                ]) for mid, m_yaws in enumerate(yaws)], axis=1)
+                group = np.cumsum([0] + [len(m) for m in yaws])[mids] + k
+                rots = [euler_xyz_to_matrix(0.0, 0.0, yaw)[:2, :2]
+                        for m_yaws in yaws for yaw in m_yaws]
+                xy = np.column_stack([np.array(xs, np.float64)[ix],
+                                      np.array(ys, np.float64)[iy]])
             with span("env.candidates.valid"):
-                ok = self.valid_poses(grid)
-                out = [s for s, keep in zip(grid, ok) if keep]
+                ok = self._valid_3dof(mids, xy, group, rots, None,
+                                      self._grid_rad(False), sp)
+                keep = np.flatnonzero(ok)
+                out = [self._grid_state(m, xs[a], ys[b], yaws[m][c])
+                       for m, a, b, c in zip(mids[keep].tolist(),
+                                             ix[keep].tolist(),
+                                             iy[keep].tolist(),
+                                             k[keep].tolist())]
             if env.histogram_pruning or env.voxel_pruning:
                 out = prune_successors(self, out,
                                        use_histogram=env.histogram_pruning,
                                        use_voxels=env.voxel_pruning)
-            sp.add("rows", len(grid))
+            sp.add("rows", len(mids))
             sp.add("valid", len(out))
         return out
 
@@ -875,22 +921,35 @@ class PerceptionEnv:
         """The (x, y, yaw) grid over the search region at `res` and
         `theta_res` (one yaw for a symmetric model), standing on the table,
         before any pruning."""
+        xs, ys, yaws = self._grid_axes()
+        return [self._grid_state(mid, x, y, yaw)
+                for mid, m_yaws in enumerate(yaws)
+                for x in xs for y in ys for yaw in m_yaws]
+
+    def _grid_axes(self) -> tuple[list, list, list[list[float]]]:
+        """The 3-DoF grid's x and y values, each accumulated from the
+        region's minimum in steps of `res` up to its maximum (+ 1e-9), as
+        the reference walks them, and each model's yaws k * theta_res (one
+        for a symmetric model)."""
         rin, env = self._input, self.env
-        grid = []
-        for mid, model in enumerate(self.bank.models):
-            n_theta = 1 if model.symmetric else max(
-                1, int(round(2 * np.pi / env.theta_res)))
-            x = rin.x_min
-            while x <= rin.x_max + 1e-9:
-                y = rin.y_min
-                while y <= rin.y_max + 1e-9:
-                    for k in range(n_theta):
-                        pose = ContPose.from_euler(
-                            x, y, rin.table_height, 0.0, 0.0,
-                            k * env.theta_res)
-                        grid.append(ObjectState(
-                            id=mid, symmetric=model.symmetric, pose=pose,
-                            segmentation_label_id=1))
-                    y += env.res
-                x += env.res
-        return grid
+
+        def axis(lo, hi):
+            values, v = [], lo
+            while v <= hi + 1e-9:
+                values.append(v)
+                v += env.res
+            return values
+
+        n_theta = max(1, int(round(2 * np.pi / env.theta_res)))
+        yaws = [[k * env.theta_res for k in range(1 if m.symmetric
+                                                  else n_theta)]
+                for m in self.bank.models]
+        return axis(rin.x_min, rin.x_max), axis(rin.y_min, rin.y_max), yaws
+
+    def _grid_state(self, mid: int, x, y, yaw) -> ObjectState:
+        """The grid's state of model `mid` at (x, y, yaw) on the table."""
+        return ObjectState(
+            id=mid, symmetric=self.bank.models[mid].symmetric,
+            pose=ContPose.from_euler(x, y, self._input.table_height,
+                                     0.0, 0.0, yaw),
+            segmentation_label_id=1)

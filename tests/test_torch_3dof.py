@@ -22,7 +22,12 @@ import torch
 
 from perception_tpu.core.config import EnvConfig, PerchConfig
 from perception_tpu.core.mesh import ModelBank, mesh_model_from_arrays
-from perception_tpu.core.pose import CAM_TO_BODY, ContPose
+from perception_tpu.core.pose import (
+    CAM_TO_BODY,
+    ContPose,
+    euler_xyz_to_matrix,
+    make_transform,
+)
 from perception_tpu.core.state import GraphState, ObjectState
 from perception_tpu.pipeline.env import PerceptionEnv, RecognitionInput
 from perception_tpu.pipeline.pruning import prune_successors as jprune
@@ -179,6 +184,173 @@ def test_is_valid_pose_with_placed_matches_jax(pair_scene):
                     for s in pstates[:40]] == ref[:40]
             assert penv.valid_poses(pstates, placed=pp,
                                     after_refinement=after).tolist() == ref
+
+
+def walk(lo, hi, res):
+    """A grid axis as the reference walks it: from lo in steps of res, each
+    value the previous one plus res, while within hi + 1e-9."""
+    values, v = [], lo
+    while v <= hi + 1e-9:
+        values.append(v)
+        v += res
+    return values
+
+
+# Both ends of the region within 1e-9 below an accumulated grid step: the
+# last x and y are in the grid only by the walk's 1e-9 allowance.
+EDGE_REGION = dict(x_min=0.50, x_max=walk(0.50, 0.75, 0.04)[-1] - 6e-10,
+                   y_min=-0.18, y_max=walk(-0.18, 0.11, 0.04)[-1] - 9e-10)
+
+
+def wedge():
+    """A triangular prism: its footprint has no centre of symmetry, so the
+    footprint's extent tells a rotation from its inverse."""
+    tri = np.array([[0.0, 0.0], [0.12, 0.0], [0.0, 0.08]])
+    v = np.concatenate([np.c_[tri, np.zeros(3)], np.c_[tri, np.full(3, 0.1)]])
+    f = np.array([[0, 2, 1], [3, 4, 5], [0, 1, 4], [0, 4, 3], [1, 2, 5],
+                  [1, 5, 4], [2, 0, 3], [2, 3, 5]])
+    return mesh_model_from_arrays("wedge", v, f,
+                                  colors=np.tile([40.0, 40, 200], (6, 1)))
+
+
+WEDGE_GT = [grid_state(0, 0.56, -0.12, np.pi / 4),
+            grid_state(1, 0.72, 0.04, 2.0)]
+
+# Regions and grids over the pair scene's observation (or an empty one, or
+# the crate and wedge scene's): {name: (region, EnvConfig fields replaced,
+# observation)}.
+GRID_SCENES = {
+    "pair": (PAIR_REGION, {}, "pair"),
+    "edge": (EDGE_REGION, {}, "pair"),
+    "fine": (dict(x_min=0.50, x_max=0.78, y_min=-0.20, y_max=0.14),
+             dict(res=0.03, theta_res=np.pi / 8), "pair"),
+    "empty": (PAIR_REGION, {}, "empty"),
+    "wedge": (PAIR_REGION, {}, "wedge"),
+}
+
+
+@pytest.fixture(scope="module", params=list(GRID_SCENES))
+def grid_scene(request, pair_scene):
+    """(name, JAX env, port env) over a GRID_SCENES region, grid and
+    observation."""
+    region, env_kw, seen = GRID_SCENES[request.param]
+    if seen == "wedge":
+        base, _ = table_scene([crate(), wedge()], WEDGE_GT, region,
+                              use_cylinder_observed=True)
+    else:
+        base = pair_scene[0]
+    jenv = PerceptionEnv(base.bank, CAM, base.perch,
+                         dataclasses.replace(base.env, **env_kw))
+    rin = dataclasses.replace(base._input, **region)
+    if seen == "empty":
+        rin = dataclasses.replace(rin, depth_image=np.zeros_like(
+            rin.depth_image))
+    jenv.set_input(rin)
+    return request.param, jenv, port_env(jenv)
+
+
+def test_grid_successors_match_jax(grid_scene):
+    """generate_successors_3dof (the grid and its validity on arrays, states
+    for the valid rows alone) against the JAX env's state-by-state loop:
+    the same states, field by field, in the same order; and the same as
+    `valid_poses` over `grid_3dof`'s states. The grid's axes are the
+    reference's accumulated walk, which differs from x_min + i * res."""
+    name, jenv, penv = grid_scene
+    ref = convert.states_from_jax(jenv.generate_successors_3dof())
+    out = penv.generate_successors_3dof()
+    assert out == ref
+    grid = penv.grid_3dof()
+    assert [s for s, ok in zip(grid, penv.valid_poses(grid)) if ok] == out
+    rin, res = penv._input, penv.env.res
+    xs, ys = walk(rin.x_min, rin.x_max, res), walk(rin.y_min, rin.y_max, res)
+    assert sorted({s.pose.x for s in grid}) == xs
+    assert sorted({s.pose.y for s in grid}) == ys
+    assert xs != [rin.x_min + i * res for i in range(len(xs))]
+    per_model = [len(xs) * len(ys) * (1 if m.symmetric else round(
+        2 * np.pi / penv.env.theta_res)) for m in penv.bank.models]
+    assert [sum(s.id == mid for s in grid)
+            for mid in range(len(per_model))] == per_model
+    if name == "empty":
+        assert out == [] and penv._world_kdtree is None
+        return
+    for mid, m in enumerate(penv.bank.models):
+        n_yaws = len({s.pose.yaw for s in out if s.id == mid})
+        assert n_yaws == 1 if m.symmetric else n_yaws > 1
+    if name == "edge":
+        assert xs[-1] > rin.x_max and ys[-1] > rin.y_max
+
+
+def test_grid_cylinder_totals_match_jax(grid_scene, monkeypatch):
+    """The observed points in each pose's inflated cylinder
+    (`_observed_totals`, greedy ICP's scorer.prepare) on a padded batch of
+    grid states: the totals the JAX env hands its scorer, exactly."""
+    import perception_tpu.pipeline.env as jax_env_module
+
+    _, jenv, penv = grid_scene
+    cands = jenv.generate_successors_3dof()[::3][:20] or [
+        grid_state(0, 0.56, -0.12), grid_state(1, 0.72, 0.08)]
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def capture(*args, **kwargs):
+        seen.append(np.asarray(args[6]))
+        raise Stop
+
+    monkeypatch.setattr(jax_env_module, "score_pose_batch", capture)
+    with pytest.raises(Stop):
+        jenv.score_object_states(cands, do_icp=False)
+    batch = int(penv.perch.gpu_batch_size)
+    chunk = convert.states_from_jax(cands)
+    chunk += [chunk[0]] * (batch - len(chunk))
+    assert penv.perch.use_cylinder_observed
+    out = penv._observed_totals(chunk, np.zeros(batch, np.int64),
+                                penv._observed)
+    assert out.dtype == np.float32
+    np.testing.assert_array_equal(out, seen[0])
+    assert (out > 0).any() == (penv._world_kdtree is not None)
+
+
+def _refined_states(rng, n):
+    """n JAX states near the pair's ground truth as ICP leaves them: the
+    pose a quaternion, tilted by a few hundredths of a radian off the table
+    and lifted a few mm, the rotations drawn from a pool of 12 so that
+    several states share one."""
+    pool = [ContPose.from_matrix(make_transform(euler_xyz_to_matrix(
+        *rng.normal(0, 0.03, 2), rng.uniform(-np.pi, np.pi)), np.zeros(3)))
+        for _ in range(12)]
+    states = []
+    for m, r in zip(rng.integers(0, 2, n), rng.integers(0, 12, n)):
+        g, q = PAIR_GT[m].pose, pool[r]
+        x, y = np.array([g.x, g.y]) + rng.normal(0, 0.04, 2)
+        states.append(ObjectState(
+            id=int(m), symmetric=bool(m == 1), segmentation_label_id=1,
+            pose=ContPose.from_quat(float(x), float(y),
+                                    TABLE + float(rng.normal(0, 0.003)),
+                                    q.qx, q.qy, q.qz, q.qw)))
+    return states
+
+
+@pytest.mark.parametrize("n_placed", [0, 1, 2])
+def test_refined_pose_validity_matches_jax(pair_scene, n_placed):
+    """valid_poses(after_refinement=True) and is_valid_pose on post-ICP
+    quaternion poses, beside objects placed at post-ICP poses (none, one,
+    two): the JAX env's is_valid_pose state by state."""
+    jenv, penv = pair_scene
+    rng = np.random.default_rng(20 + n_placed)
+    jstates = _refined_states(rng, 160)
+    jplaced = GraphState(tuple(_refined_states(rng, 2)[:n_placed]))
+    pstates = convert.states_from_jax(jstates)
+    pplaced = pstate.GraphState(tuple(
+        convert.states_from_jax(jplaced.object_states)))
+    ref = [jenv.is_valid_pose(s, placed=jplaced, after_refinement=True)
+           for s in jstates]
+    assert 5 < sum(ref) < len(ref)
+    assert penv.valid_poses(pstates, placed=pplaced,
+                            after_refinement=True).tolist() == ref
+    assert [penv.is_valid_pose(s, placed=pplaced, after_refinement=True)
+            for s in pstates[:40]] == ref[:40]
 
 
 @pytest.mark.parametrize("color,cylinder,icp", [

@@ -345,6 +345,33 @@ def test_greedy_icp_request_span_tree():
     assert cands["counters"]["rows"] > cands["counters"]["valid"]
 
 
+@pytest.mark.parametrize("mode", ["greedy_icp", "tree"])
+def test_3dof_candidates_count_each_cell_once(mode):
+    """A 3-DoF request's `env.candidates` span: `rows` the grid's (model, x,
+    y, yaw) rows, `counted` the projected point counts made, one per (cell,
+    model) since a cell's yaws share theirs, `valid` the rows kept."""
+    from tests.test_torch_3dof import PAIR_REGION, TABLE, walk
+
+    rec, depth = _table_recognizer()
+    payload = {"depth_image": depth.tolist(), "depth_factor": 100.0,
+               "cam_to_world": CAM_TO_BODY.tolist(), "table_height": TABLE,
+               "mode": mode, **PAIR_REGION}
+    with _Served(rec, trace=True) as served:
+        _, spans = _traced_request(served, payload)
+    (cands,) = _named(spans, "env.candidates")
+    env = rec.env.env
+    cells = (len(walk(PAIR_REGION["x_min"], PAIR_REGION["x_max"], env.res))
+             * len(walk(PAIR_REGION["y_min"], PAIR_REGION["y_max"], env.res)))
+    models = rec.env.bank.models
+    yaws = [1 if m.symmetric else round(2 * np.pi / env.theta_res)
+            for m in models]
+    c = cands["counters"]
+    assert cells == 56 and yaws == [8, 1]
+    assert c["rows"] == cells * sum(yaws)
+    assert c["counted"] == cells * len(models)
+    assert 0 < c["valid"] < c["rows"]
+
+
 def test_tree_request_spans_each_expansion():
     from tests.test_torch_3dof import PAIR_REGION, TABLE
 
