@@ -1584,7 +1584,7 @@ def check_tree_occlusion(scene, succ) -> None:
         env.perch = saved
     require(cfg.use_tree_occlusion and cfg.cost_type == 0
             and not cfg.use_segmentation_label, "tree-occlusion config")
-    poses = np.stack([env.pose_to_camera(s) for s in cands])
+    poses = env.poses_to_camera(cands)
     ids = np.asarray([s.id for s in cands], np.int64)
     labels = np.zeros(len(cands), np.int64)
     totals = env._observed_totals(cands, labels, env._observed)
@@ -1958,8 +1958,7 @@ def check_projective(dev) -> dict:
     check_slice(bp, "projective")
     out = bp.score()
     env = bp.env
-    gt_t = torch.as_tensor(np.stack([env.pose_to_camera(g)[:3, 3]
-                                     for g in bp.gt]), device=dev)
+    gt_t = torch.as_tensor(env.poses_to_camera(bp.gt)[:, :3, 3], device=dev)
     labels = bp.args[5]
     target = gt_t[labels]
     before = (bp.args[3][:, :3, 3] - target).norm(dim=1)
@@ -2607,17 +2606,12 @@ def check_sharded(bp) -> dict:
     gathered result must equal this process's score_pose_batch on every
     field, bit for bit; then the padding poses on the kernels
     (check_padding). Returns each rank's JSON lines."""
-    env = bp.env
     refs = {k: bp.score(n=k) for k in SHARD_COUNTS}
     sync()
     out = {}
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
         path = f"{tmp}/batch.pt"
-        shard_run.save_batch(
-            path, bp.args, bp.cfg, bank_backface=env._render_bank[3],
-            bank_icp_samples=env._bank_icp_samples,
-            bank_icp_normals=env._bank_icp_normals,
-            bank_tri_lab=env._render_bank_lab if bp.use_lab else None)
+        shard_run.save_batch(path, bp.args, bp.cfg, **bp.bank_inputs)
         for ranks, backend in ((1, "nccl"), (2, "gloo")):
             rdir = Path(tmp) / backend
             rdir.mkdir()
@@ -2654,7 +2648,6 @@ def check_padding(bp, pad: int = 3) -> dict:
     total -1, and the other poses scored as without them."""
     n = len(bp.candidates) - pad
     verts, colors, valid, poses, ids, labels, totals, proj, scene = bp.args
-    env = bp.env
 
     def padded(x):
         return torch.cat([x[:n], torch.zeros((pad, *x.shape[1:]),
@@ -2662,11 +2655,7 @@ def check_padding(bp, pad: int = 3) -> dict:
 
     out = scorer.score_pose_batch(
         verts, colors, valid, padded(poses), padded(ids), padded(labels),
-        padded(totals), proj, scene, bp.cfg,
-        bank_backface=env._render_bank[3],
-        bank_icp_samples=env._bank_icp_samples,
-        bank_icp_normals=env._bank_icp_normals,
-        bank_tri_lab=env._render_bank_lab if bp.use_lab else None)
+        padded(totals), proj, scene, bp.cfg, **bp.bank_inputs)
     ref = bp.score(n=n)
     sync()
     fields = dataclasses.fields(out)

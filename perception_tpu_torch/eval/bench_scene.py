@@ -65,20 +65,27 @@ class BenchProblem:
                 self.gt, sensor=by_name(self.sensor),
                 rng=np.random.default_rng((self.seed, 0xC0FFEE)))
 
+    @property
+    def bank_inputs(self) -> dict:
+        """score_pose_batch's bank keyword inputs, as the env passes them
+        (the face Lab table where use_lab)."""
+        env = self.env
+        return dict(bank_backface=env._render_bank[3],
+                    bank_icp_samples=env._bank_icp_samples,
+                    bank_icp_normals=env._bank_icp_normals,
+                    bank_tri_lab=env._render_bank_lab if self.use_lab
+                    else None)
+
     def score(self, n: int | None = None,
               cfg: ScorerConfig | None = None) -> PoseScores:
         """Score the first n candidates (all by default) in one batch, with
         this problem's configuration or `cfg`."""
-        env = self.env
         (verts, colors, valid, poses, ids, labels, totals, proj,
          scene) = self.args
         sl = slice(None, n)
         return score_pose_batch(
             verts, colors, valid, poses[sl], ids[sl], labels[sl], totals[sl],
-            proj, scene, cfg or self.cfg, bank_backface=env._render_bank[3],
-            bank_icp_samples=env._bank_icp_samples,
-            bank_icp_normals=env._bank_icp_normals,
-            bank_tri_lab=env._render_bank_lab if self.use_lab else None)
+            proj, scene, cfg or self.cfg, **self.bank_inputs)
 
     def first_call(self, module, attr: str,
                    cfg: ScorerConfig | None = None) -> tuple:
@@ -222,7 +229,7 @@ def build_bench_problem(n_poses: int = 512, t_cap: int = 1024,
 
     cfg = env._scorer_config(do_icp=True)
     seg_count = env._observed.seg_count.cpu().numpy().astype(np.float32)
-    poses = np.stack([env.pose_to_camera(s) for s in cands]).astype(np.float32)
+    poses = env.poses_to_camera(cands)
     ids = np.asarray([s.id for s in cands], np.int64)
     labels = np.asarray([s.segmentation_label_id - 1 for s in cands], np.int64)
     dev = env._tensor

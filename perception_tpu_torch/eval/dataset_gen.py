@@ -207,11 +207,9 @@ def write_ycb_layout(root: str, env, scenes: "list[GeneratedScene]",
             class_label[scene.label == j + 1] = s.id + 1
         write_png(base + "-label.png", class_label)
 
-        poses = np.zeros((3, 4, len(scene.states)))
-        cls = []
-        for j, s in enumerate(scene.states):
-            poses[:, :, j] = env.pose_to_camera(s)[:3, :]
-            cls.append(s.id + 1)
+        poses = env.poses_to_camera(scene.states)[:, :3].transpose(
+            1, 2, 0).astype(np.float64)
+        cls = [s.id + 1 for s in scene.states]
         savemat(base + "-meta.mat", {
             "cls_indexes": np.asarray(cls).reshape(-1, 1),
             "poses": poses,

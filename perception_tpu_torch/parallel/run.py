@@ -82,12 +82,7 @@ def bench_batch(poses: int, seed: int, device) -> tuple[tuple, ScorerConfig,
 
     bp = build_bench_problem(n_poses=poses, model_kind="bumpy1024",
                              seed=seed, device=device, icp_mode="fused")
-    env = bp.env
-    aux = dict(bank_backface=env._render_bank[3],
-               bank_icp_samples=env._bank_icp_samples,
-               bank_icp_normals=env._bank_icp_normals,
-               bank_tri_lab=env._render_bank_lab if bp.use_lab else None)
-    return bp.args, bp.cfg, aux
+    return bp.args, bp.cfg, bp.bank_inputs
 
 
 def _sync(device: torch.device) -> None:

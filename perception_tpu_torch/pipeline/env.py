@@ -338,14 +338,8 @@ class PerceptionEnv:
 
     def render_composite(self, states: Sequence[ObjectState]):
         """Render a multi-object scene into one depth / colour / label image
-        at full stride-1 resolution (through the direct raster kernel)."""
-        cam = self.camera
-        poses = np.stack([self.pose_to_camera(s) for s in states])
-        ids = np.asarray([s.id for s in states], np.int64)
-        out = render_pose_batch(
-            self._bank_tri_verts, self._bank_tri_colors, self._bank_tri_valid,
-            self._tensor(poses, torch.float32), self._tensor(ids), self._proj,
-            width=cam.width, height=cam.height, stride=1)
+        at full stride-1 resolution (the states' `render_full`)."""
+        out = self.render_full(states)
         depths = out.depth.cpu().numpy()
         colors = out.color.cpu().numpy()
         big = np.iinfo(np.int32).max
@@ -357,17 +351,49 @@ class PerceptionEnv:
         label = np.where(depth > 0, winner + 1, 0).astype(np.int32)
         return depth, color, label
 
+    def render_full(self, states: Sequence[ObjectState]):
+        """Each state alone at stride 1 through the direct raster, without
+        the backface cull (the observation's render), on the env's device."""
+        return self._render_states(states, stride=1)
+
+    def render_strided(self, states: Sequence[ObjectState]):
+        """Each state alone at gpu_stride through `kernel_backend` with the
+        bank's backface cull (no ROI, no occlusion pass), on the device."""
+        return self._render_states(
+            states, stride=int(self.perch.gpu_stride),
+            backend=self.env.kernel_backend,
+            bank_backface=self._bank_backface)
+
+    def _render_states(self, states: Sequence[ObjectState], **kwargs):
+        ids = np.asarray([s.id for s in states], np.int64)
+        return render_pose_batch(
+            self._bank_tri_verts, self._bank_tri_colors, self._bank_tri_valid,
+            self._tensor(self.poses_to_camera(states)), self._tensor(ids),
+            self._proj, width=self.camera.width, height=self.camera.height,
+            **kwargs)
+
     # ------------------------------------------------------------------
     # Pose transforms
     # ------------------------------------------------------------------
 
     def pose_to_camera(self, state: ObjectState) -> np.ndarray:
         """World-frame ContPose -> model->camera matrix incl. preprocessing."""
+        return self.poses_to_camera([state])[0]
+
+    def poses_to_camera(self, states: Sequence[ObjectState]) -> np.ndarray:
+        """[N, 4, 4] float32 model->camera matrices of the states' world
+        poses, preprocessing included: the camera's world pose (CAM_TO_BODY
+        before any input) inverted once, then each state's product in
+        float64, rounded once."""
         cam_to_world = (self._input.cam_to_world if self._input is not None
-                        else CAM_TO_BODY.copy())
-        pre = self.bank.models[state.id].preprocessing_transform
-        return (np.linalg.inv(cam_to_world) @ state.pose.transform()
-                @ pre).astype(np.float32)
+                        else CAM_TO_BODY)
+        inv = np.linalg.inv(cam_to_world)
+        models = self.bank.models
+        out = np.empty((len(states), 4, 4), np.float32)
+        for i, s in enumerate(states):
+            out[i] = (inv @ s.pose.transform()
+                      @ models[s.id].preprocessing_transform)
+        return out
 
     def camera_to_world_pose(self, mat_cam: np.ndarray, model_id: int,
                              remove_preprocessing: bool = True) -> ContPose:
@@ -590,11 +616,14 @@ class PerceptionEnv:
         return np.full(len(chunk), total, np.float32)
 
     def score_object_states(self, states: Sequence[ObjectState],
-                            do_icp: bool | None = None,
-                            fine: bool = False) -> list[ScoredState]:
+                            do_icp: bool | None = None, fine: bool = False,
+                            source: tuple | None = None) -> list[ScoredState]:
         """Score single-object placements in gpu_batch_size chunks (the last
         chunk padded to the full batch, padding dropped); fine=True scores
-        against the fine_stride scene."""
+        against the fine_stride scene. `source`, a (depth, label) pair of
+        host images on the scene's strided grid, replaces the scene's source
+        images for this call (the tree search's composed source); the env's
+        scene is left as it is."""
         if self._scene is None:
             raise RuntimeError("call set_input first")
         if fine:
@@ -606,6 +635,10 @@ class PerceptionEnv:
         else:
             cfg = self._scorer_config(do_icp)
             cloud, scene = self._observed, self._scene
+        if source is not None:
+            scene = dataclasses.replace(
+                scene, source_depth=self._tensor(source[0], torch.int32),
+                source_label=self._tensor(source[1], torch.int32))
         results: list[ScoredState] = []
         batch = int(self.perch.gpu_batch_size)
         rb_verts, rb_colors, rb_valid, rb_backface = self._render_bank
@@ -614,9 +647,11 @@ class PerceptionEnv:
                 with span("scorer.prepare"):
                     chunk = list(states[start:start + batch])
                     n = len(chunk)
+                    poses = self.poses_to_camera(chunk)
                     if n < batch:
                         chunk = chunk + [chunk[0]] * (batch - n)
-                    poses = np.stack([self.pose_to_camera(s) for s in chunk])
+                        poses = np.concatenate(
+                            [poses, np.repeat(poses[:1], batch - n, axis=0)])
                     ids = np.asarray([s.id for s in chunk], np.int64)
                     labels = np.asarray(
                         [max(s.segmentation_label_id - 1, 0) for s in chunk],
@@ -628,7 +663,7 @@ class PerceptionEnv:
                     counters: dict = {}
                     scores = score_pose_batch(
                         rb_verts, rb_colors, rb_valid,
-                        dev(poses, torch.float32), dev(ids), dev(labels),
+                        dev(poses), dev(ids), dev(labels),
                         dev(totals, torch.float32), self._proj,
                         scene, cfg, bank_backface=rb_backface,
                         bank_icp_samples=self._bank_icp_samples,
@@ -677,16 +712,8 @@ class PerceptionEnv:
         through `_refine_winners`."""
         t0 = time.perf_counter()
         scored = self.score_object_states(candidates, do_icp)
-        six_dof = (self._input is not None
-                   and self._input.use_external_pose_list)
         if self._scene_fine is not None:
-            groups: dict[tuple, list[ScoredState]] = {}
-            for su in scored:
-                if su.cost < 0 or abs(su.target_cost - su.source_cost) >= 30:
-                    continue
-                key = ((su.state.id, su.state.segmentation_label_id)
-                       if six_dof else (su.state.id,))
-                groups.setdefault(key, []).append(su)
+            groups = self._greedy_groups(scored)
             top: list[ScoredState] = []
             for key in sorted(groups):
                 per = sorted(groups[key], key=lambda su: su.cost)
@@ -700,21 +727,13 @@ class PerceptionEnv:
                 scored = self.score_object_states(fine_states, do_icp=False,
                                                   fine=True)
         with span("env.argmin"):
-            if collision_ordering and not six_dof:
+            if collision_ordering and not self._input.use_external_pose_list:
                 best = self._commit_with_collisions(scored)
             else:
-                best = {}
-                for su in scored:
-                    if su.cost in (-1, -2):
-                        continue
-                    if abs(su.target_cost - su.source_cost) >= 30:
-                        continue
-                    key = ((su.state.id, su.state.segmentation_label_id)
-                           if six_dof else (su.state.id,))
-                    if key not in best or su.cost < best[key].cost:
-                        best[key] = su
+                best = {key: min(group, key=lambda su: su.cost)
+                        for key, group in self._greedy_groups(scored).items()}
         if self.env.pose_refinement_rounds and best:
-            best = self._refine_winners(best, do_icp, six_dof)
+            best = self._refine_winners(best, do_icp)
         state = GraphState()
         chosen = []
         for key in sorted(best):
@@ -738,7 +757,23 @@ class PerceptionEnv:
         self.stats.scenes_valid = sum(1 for s in scored if s.cost >= 0)
         return state, chosen
 
-    def _refine_winners(self, best: dict, do_icp, six_dof: bool) -> dict:
+    def _greedy_groups(self, scored: Sequence[ScoredState]
+                       ) -> dict[tuple, list[ScoredState]]:
+        """The candidates the greedy rule admits, in order, under their key:
+        (model, segment) in 6-DoF mode, (model,) in 3-DoF mode. The rule
+        drops an invalid pose (cost -1, the only negative cost the scorer
+        gives) and |target - source| >= 30."""
+        six_dof = self._input.use_external_pose_list
+        groups: dict[tuple, list[ScoredState]] = {}
+        for su in scored:
+            if su.cost < 0 or abs(su.target_cost - su.source_cost) >= 30:
+                continue
+            key = ((su.state.id, su.state.segmentation_label_id) if six_dof
+                   else (su.state.id,))
+            groups.setdefault(key, []).append(su)
+        return groups
+
+    def _refine_winners(self, best: dict, do_icp) -> dict:
         """pose_refinement_rounds rounds around the greedy winners: each
         round scores every winner rotated in the camera frame about its own
         origin by pose_refinement_angle and a third of it about each of
@@ -773,13 +808,9 @@ class PerceptionEnv:
                                 su.state.segmentation_label_id)))
             if not cands:
                 break
-            for su in self.score_object_states(cands, do_icp):
-                if su.cost in (-1, -2):
-                    continue
-                if abs(su.target_cost - su.source_cost) >= 30:
-                    continue
-                key = ((su.state.id, su.state.segmentation_label_id)
-                       if six_dof else (su.state.id,))
+            scored = self.score_object_states(cands, do_icp)
+            for key, group in self._greedy_groups(scored).items():
+                su = min(group, key=lambda su: su.cost)
                 if key in best and su.cost < best[key].cost:
                     best[key] = su
         return best
@@ -791,15 +822,9 @@ class PerceptionEnv:
         cheapest candidate whose post-ICP world pose does not collide with
         those already committed; a model that cannot commit pays 200
         (costs are <= 200). The cheapest total wins."""
-        per_model: dict[int, list[ScoredState]] = {}
-        for su in scored:
-            if su.cost in (-1, -2):
-                continue
-            if abs(su.target_cost - su.source_cost) >= 30:
-                continue
-            per_model.setdefault(su.state.id, []).append(su)
-        for mid in per_model:
-            per_model[mid].sort(key=lambda su: su.cost)
+        per_model = self._greedy_groups(scored)
+        for group in per_model.values():
+            group.sort(key=lambda su: su.cost)
         adj_world: dict[int, ObjectState] = {}
 
         def world_state(su: ScoredState) -> ObjectState:
@@ -809,19 +834,19 @@ class PerceptionEnv:
                         su.adjusted_pose_cam, su.state.id))
             return adj_world[id(su)]
 
-        mids = sorted(per_model)
+        keys = sorted(per_model)
         miss_penalty = 200
-        orders = (itertools.permutations(mids) if len(mids) <= 5
+        orders = (itertools.permutations(keys) if len(keys) <= 5
                   else [tuple(sorted(
-                      mids, key=lambda m: per_model[m][0].cost))])
+                      keys, key=lambda k: per_model[k][0].cost))])
         best_total, best_sel = None, {}
         for order in orders:
             placed = GraphState()
             sel: dict[tuple, ScoredState] = {}
             total = 0
-            for mid in order:
+            for key in order:
                 chosen = None
-                for su in per_model[mid]:
+                for su in per_model[key]:
                     if self.is_valid_pose(world_state(su), placed=placed,
                                           after_refinement=True):
                         chosen = su
@@ -830,7 +855,7 @@ class PerceptionEnv:
                     total += miss_penalty
                     continue
                 total += chosen.cost
-                sel[(mid,)] = chosen
+                sel[key] = chosen
                 placed = placed.append(world_state(chosen))
             if best_total is None or total < best_total:
                 best_total, best_sel = total, sel

@@ -94,8 +94,8 @@ class MHAStarPlanner:
             return []
         self.stats.expands += 1
         search = self._search
-        scored = search._score_with_source(
-            cands, node.source_depth, node.source_label)
+        scored = self.env.score_object_states(
+            cands, do_icp=False, source=(node.source_depth, node.source_label))
         survivors = [su for su in scored if su.cost >= 0]
         search.prefetch_singles([su.state for su in survivors])
         out = []

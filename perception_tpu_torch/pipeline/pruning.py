@@ -12,16 +12,14 @@ semantics (kUseHistogramPruning / kUseOctomapPruning, IsValidHistogram):
     observed cloud leaves empty; keep while that count over the observed
     cloud's size stays below 0.8.
 
-Every `batch` candidates render in one `render_pose_batch` call through the
-env's `kernel_backend` (the full bank, full frame at `gpu_stride`); the two
+Every `batch` candidates render in one call of the env's `render_strided`
+(its `kernel_backend`, the full bank, full frame at `gpu_stride`); the two
 tests are vectorised NumPy on the host.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-from perception_tpu_torch.ops.rasterizer import render_pose_batch
 
 
 def rgb_to_hs(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -129,13 +127,7 @@ def prune_successors(env, states: list, *,
     keep: list = []
     for lo in range(0, len(states), batch):
         chunk = states[lo:lo + batch]
-        poses = np.stack([env.pose_to_camera(s) for s in chunk])
-        ids = np.asarray([s.id for s in chunk], np.int64)
-        out = render_pose_batch(
-            env._bank_tri_verts, env._bank_tri_colors, env._bank_tri_valid,
-            env._tensor(poses), env._tensor(ids), env._proj,
-            width=cam.width, height=cam.height, stride=stride,
-            backend=env.env.kernel_backend, bank_backface=env._bank_backface)
+        out = env.render_strided(chunk)
         depth = out.depth.cpu().numpy()
         ok = np.ones(len(chunk), bool)
         if use_histogram:

@@ -26,10 +26,8 @@ import dataclasses
 from typing import Callable, Sequence
 
 import numpy as np
-import torch
 
 from perception_tpu_torch.core.state import GraphState, ObjectState
-from perception_tpu_torch.ops.rasterizer import render_pose_batch
 from perception_tpu_torch.utils.stats import EnvStats, span
 
 
@@ -83,20 +81,6 @@ class TreeSearch:
             per_model[mid] = per_model[mid][:self.max_successors_per_model]
         return per_model
 
-    def _score_with_source(self, states: list[ObjectState],
-                           source_depth: np.ndarray,
-                           source_label: np.ndarray):
-        """Score candidates (without ICP) against a composed source image."""
-        env = self.env
-        saved = env._scene
-        env._scene = dataclasses.replace(
-            saved, source_depth=env._tensor(source_depth, torch.int32),
-            source_label=env._tensor(source_label, torch.int32))
-        try:
-            return env.score_object_states(states, do_icp=False)
-        finally:
-            env._scene = saved
-
     @staticmethod
     def _state_key(st: ObjectState) -> tuple:
         """Value key of a candidate (for the render and root-cost caches)."""
@@ -108,20 +92,11 @@ class TreeSearch:
 
     def _candidate_depths(self, states: list[ObjectState]) -> np.ndarray:
         """Strided single-object depth renders [N, h, w] through the cache;
-        the misses render in one batched call through the env's backend."""
-        env = self.env
+        the misses render in one batched call (`render_strided`)."""
         miss = [s for s in states
                 if self._state_key(s) not in self._render_cache]
         if miss:
-            poses = np.stack([env.pose_to_camera(s) for s in miss])
-            ids = np.asarray([s.id for s in miss], np.int64)
-            out = render_pose_batch(
-                env._bank_tri_verts, env._bank_tri_colors,
-                env._bank_tri_valid, env._tensor(poses), env._tensor(ids),
-                env._proj, width=env.camera.width, height=env.camera.height,
-                stride=int(env.perch.gpu_stride),
-                backend=env.env.kernel_backend,
-                bank_backface=env._bank_backface)
+            out = self.env.render_strided(miss)
             for s, d in zip(miss, out.depth.cpu().numpy()):
                 self._render_cache[self._state_key(s)] = d
                 self.stats.scenes_rendered += 1
@@ -192,14 +167,11 @@ class TreeSearch:
     def _compose(self, node: _Node, obj: ObjectState):
         """The node's composed images with obj's cached single-object render
         on top (integer min of depth; obj's label where it is closer). A miss
-        renders obj alone at full resolution (`render_composite`), strided."""
+        renders obj alone as `prefetch_singles` does."""
         key = self._state_key(obj)
-        d = self._render_cache.get(key)
-        if d is None:
-            depth, _, _ = self.env.render_composite([obj])
-            d = self.env.strided(depth).astype(np.int32)
-            self._render_cache[key] = d
-            self.stats.scenes_rendered += 1
+        if key not in self._render_cache:
+            self.prefetch_singles([obj])
+        d = self._render_cache[key]
         closer = (d > 0) & ((node.source_depth == 0) | (d < node.source_depth))
         new_depth = np.where(closer, d, node.source_depth)
         new_label = np.where(closer, obj.id + 1, node.source_label)
@@ -209,7 +181,7 @@ class TreeSearch:
                          chunk: int = 64) -> None:
         """Fill the render cache for the objects `_compose` will place: the
         misses render alone at full resolution as `render_composite` renders
-        them (direct raster, no backface cull), `chunk` per call, strided."""
+        them (`render_full`), `chunk` per call, strided."""
         env = self.env
         miss, keys = [], set()
         for s in objs:
@@ -217,15 +189,9 @@ class TreeSearch:
             if key not in self._render_cache and key not in keys:
                 keys.add(key)
                 miss.append(s)
-        cam = env.camera
         for lo in range(0, len(miss), chunk):
             part = miss[lo:lo + chunk]
-            poses = np.stack([env.pose_to_camera(s) for s in part])
-            ids = np.asarray([s.id for s in part], np.int64)
-            out = render_pose_batch(
-                env._bank_tri_verts, env._bank_tri_colors,
-                env._bank_tri_valid, env._tensor(poses), env._tensor(ids),
-                env._proj, width=cam.width, height=cam.height, stride=1)
+            out = env.render_full(part)
             for s, d in zip(part, env.strided(out.depth).cpu().numpy()):
                 self._render_cache[self._state_key(s)] = d.astype(np.int32)
                 self.stats.scenes_rendered += 1
@@ -266,8 +232,9 @@ class TreeSearch:
                 self.stats.expands += 1
                 with span("search.expand") as sp:
                     sp.add("candidates", len(cands))
-                    scored = self._score_with_source(
-                        cands, node.source_depth, node.source_label)
+                    scored = self.env.score_object_states(
+                        cands, do_icp=False,
+                        source=(node.source_depth, node.source_label))
                     if node.state.num_objects == 0:
                         for su, st in zip(scored, cands):
                             self._root_costs[self._state_key(st)] = (

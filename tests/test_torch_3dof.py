@@ -33,6 +33,7 @@ from perception_tpu.pipeline.env import PerceptionEnv, RecognitionInput
 from perception_tpu.pipeline.pruning import prune_successors as jprune
 from perception_tpu_torch import convert
 from perception_tpu_torch.core import config as pc
+from perception_tpu_torch.core import mesh as pmesh
 from perception_tpu_torch.core import state as pstate
 from perception_tpu_torch.kernels import build
 from perception_tpu_torch.pipeline.env import PerceptionEnv as PortEnv
@@ -455,6 +456,48 @@ def test_greedy_icp_baseline_matches_jax(pair_scene):
     np.testing.assert_allclose(
         [[p.x, p.y, p.z] for p in result.poses],
         [[p.x, p.y, p.z] for p in ref.poses], atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["no_input", "6dof", "3dof"])
+def test_poses_to_camera_is_the_stacked_transform(pair_scene, mode):
+    """The env's batched camera poses equal, bit for bit, pose_to_camera
+    stacked and each state's own product (inverse camera pose @ pose @
+    preprocessing in float64, rounded once to float32), for models with a
+    preprocessing transform: before any input (CAM_TO_BODY), and on a 6-DoF
+    and a 3-DoF input from a tilted, shifted camera."""
+    _, penv = pair_scene
+    # Shifted boxes, the second flipped: preprocessing that is no identity.
+    v, f = make_box(w=0.10, d=0.07, h=0.12)
+    bank = pmesh.ModelBank.from_models([pmesh.mesh_model_from_arrays(
+        f"box{i}", v + [0.03, -0.02, 0.05 * i], f, flipped=bool(i))
+        for i in range(2)], t_cap=16)
+    assert all(not np.array_equal(m.preprocessing_transform, np.eye(4))
+               for m in bank.models)
+    env = PortEnv(bank, penv.camera, penv.perch, penv.env, device="cpu")
+    c2w = CAM_TO_BODY
+    if mode != "no_input":
+        depth, _, label = penv.render_composite(
+            convert.states_from_jax(PAIR_GT))
+        c2w = make_transform(euler_xyz_to_matrix(0.1, 0.35, -0.2),
+                             [0.02, -0.01, 0.3]) @ CAM_TO_BODY
+        env.set_input(convert.input_from_jax(RecognitionInput(
+            depth_image=depth.astype(np.float64), label_mask=label,
+            cam_to_world=c2w, use_external_pose_list=mode == "6dof",
+            table_height=TABLE, **PAIR_REGION)))
+    rng = np.random.default_rng(7)
+    states = convert.states_from_jax([ObjectState(
+        id=i % 2, symmetric=False,
+        pose=ContPose.from_euler(*rng.uniform(-1.0, 1.0, 6)),
+        segmentation_label_id=1) for i in range(40)])
+    out = env.poses_to_camera(states)
+    assert out.dtype == np.float32 and out.shape == (40, 4, 4)
+    own = np.stack([(np.linalg.inv(c2w) @ s.pose.transform()
+                     @ env.bank.models[s.id].preprocessing_transform
+                     ).astype(np.float32) for s in states])
+    assert out.tobytes() == own.tobytes()
+    assert out.tobytes() == np.stack(
+        [env.pose_to_camera(s) for s in states]).tobytes()
+    assert env.poses_to_camera([]).shape == (0, 4, 4)
 
 
 def test_prune_successors_match_jax(pair_scene):

@@ -41,6 +41,7 @@ from perception_tpu_torch.io import model_cache as pcache
 from perception_tpu_torch.io import poses_file as pposes
 from perception_tpu_torch.utils import stats as pstats
 
+from tests.jax_native import jax_native_qem  # noqa: F401  (fixture)
 from tests.test_search_e2e import _write_box_ply
 
 REPO = Path(__file__).resolve().parent.parent
@@ -134,7 +135,7 @@ def _bench_models(kind, pm, jm):
 
 
 @pytest.mark.parametrize("kind", ["bumpy1024", "blob"])
-def test_bank_and_lod_bank_match_jax(kind):
+def test_bank_and_lod_bank_match_jax(kind, jax_native_qem):
     """ModelBank.from_models at 1024 triangles and the LOD-256 re-decimation
     give the JAX package's arrays, and so do the surface samples."""
     pmods, jmods = _bench_models(kind, pmesh.mesh_model_from_arrays,
@@ -156,7 +157,7 @@ def test_bank_and_lod_bank_match_jax(kind):
 
 
 @pytest.mark.parametrize("target", [64, 300])
-def test_decimate_matches_jax(target):
+def test_decimate_matches_jax(target, jax_native_qem):
     """With PT_DECIMATE unset the port decimates by QEM, and the JAX
     package's QEM gives the same mesh."""
     rng = np.random.default_rng(3)
@@ -194,7 +195,7 @@ def _write_binary_ply(path, rng):
 
 
 @pytest.mark.parametrize("fmt", ["ascii", "binary"])
-def test_mesh_files_load_like_jax(tmp_path, fmt):
+def test_mesh_files_load_like_jax(tmp_path, fmt, jax_native_qem):
     """PLY reading (the port's C++ loader against both of the JAX
     package's readers), load_model with decimation, and the .npz model
     cache."""
@@ -325,6 +326,49 @@ def test_port_sources_import_nothing_of_the_jax_package():
            for name in _imports(f)
            if name.split(".")[0] in ("jax", "jaxlib", "perception_tpu",
                                      "benchmarks")}
+    assert not bad, bad
+
+
+def _env_attributes(path: Path) -> tuple[set, set]:
+    """(read, assigned) attribute names of an env in a module: attributes of
+    a name `env` or of any `<x>.env`, at any depth of the file."""
+    def is_env(node):
+        return ((isinstance(node, ast.Name) and node.id == "env")
+                or (isinstance(node, ast.Attribute) and node.attr == "env"))
+
+    read, assigned = set(), set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Attribute) and is_env(node.value):
+            (read if isinstance(node.ctx, ast.Load)
+             else assigned).add(node.attr)
+    return read, assigned
+
+
+@pytest.mark.parametrize("rel", ["pipeline/search.py", "pipeline/pruning.py",
+                                 "parallel/run.py"])
+def test_env_neighbours_reach_it_through_its_methods(rel):
+    """The tree search, the successor pruning and the multi-process runner
+    read none of the env's bank tensors, its projection or its tensor
+    helper, and assign no attribute of an env: renders, camera poses and
+    composed source images go through the env's methods."""
+    read, assigned = _env_attributes(REPO / "perception_tpu_torch" / rel)
+    bad = sorted(a for a in read if a.startswith(("_bank", "_render_bank"))
+                 or a in ("_proj", "_tensor"))
+    assert not bad, bad
+    assert not assigned, sorted(assigned)
+
+
+def test_no_module_beside_the_env_writes_its_private_state():
+    """No module of pipeline/ but env.py, and none of parallel/, assigns a
+    private attribute of an env."""
+    port = REPO / "perception_tpu_torch"
+    files = [f for d in ("pipeline", "parallel")
+             for f in sorted((port / d).glob("*.py")) if f.name != "env.py"]
+    assert len(files) > 8
+    bad = {str(f.relative_to(REPO)): sorted(
+        a for a in _env_attributes(f)[1] if a.startswith("_"))
+        for f in files}
+    bad = {k: v for k, v in bad.items() if v}
     assert not bad, bad
 
 

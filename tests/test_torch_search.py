@@ -8,8 +8,11 @@ tensors. Tolerance: the same winners (model ids in placement order, poses
 equal to 1 mm) and the same number of expansions; composed images equal.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 from perception_tpu.core.state import GraphState
 from perception_tpu.pipeline.heuristics import (
@@ -30,6 +33,7 @@ from tests.test_torch_3dof import (
     PAIR_GT,
     PAIR_REGION,
     crate,
+    grid_state,
     one_thread,  # noqa: F401  (autouse)
     port_env,
     post,
@@ -97,6 +101,44 @@ def test_compose_matches_jax_and_rerender(scene):
         key = PortTree._state_key(obj)
         np.testing.assert_array_equal(fresh._render_cache[key],
                                       search._render_cache[key])
+
+
+def test_composed_source_scores_without_touching_the_scene(scene):
+    """score_object_states with a node's composed (depth, label) source
+    scores as the env with its scene's source images swapped for them (the
+    same costs and adjusted poses, bit for bit), and leaves the env's scene
+    object and its tensors as they were."""
+    _, penv = scene
+    search = PortTree(penv)
+    root = search.root()
+    # A crate in front of both objects, between them.
+    front = convert.states_from_jax([grid_state(0, 0.60, -0.02)])[0]
+    depth, label = search._compose(root, front)
+    assert (depth != root.source_depth).any()
+    cands = penv.generate_successors_3dof()
+    kept = penv._scene
+    before = {f.name: getattr(kept, f.name).clone()
+              for f in dataclasses.fields(kept)}
+    out = penv.score_object_states(cands, do_icp=False, source=(depth, label))
+    assert penv._scene is kept
+    for name, t in before.items():
+        assert torch.equal(getattr(kept, name), t), name
+    penv._scene = dataclasses.replace(
+        kept, source_depth=torch.as_tensor(depth),
+        source_label=torch.as_tensor(label))
+    try:
+        swapped = penv.score_object_states(cands, do_icp=False)
+    finally:
+        penv._scene = kept
+    plain = penv.score_object_states(cands, do_icp=False)
+    assert len(out) == len(swapped) == len(cands)
+
+    def fields(su):
+        return (su.state, su.cost, su.target_cost, su.source_cost,
+                su.last_level_cost, su.adjusted_pose_cam.tobytes())
+    assert [fields(su) for su in out] == [fields(su) for su in swapped]
+    assert [su.cost for su in out] != [su.cost for su in plain]
+    assert any(su.cost >= 0 for su in out)
 
 
 def _detections(jenv):
